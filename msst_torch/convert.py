@@ -1,0 +1,52 @@
+"""Carry maps and estimator state between msst_tpu and the port.
+
+``from_numpy(tree, device)`` takes a msst_tpu NamedTuple whose leaves were
+turned into numpy arrays (``jax.tree.map(np.asarray, x)``) and builds the
+port's NamedTuple of the same name and fields, with tensors on `device`;
+``to_numpy(obj)`` turns the port's tensors back into numpy arrays.  Dtypes
+are kept (bool stays bool, int32 stays int32).  The knn hash grids of
+msst_tpu's ``LocalMap`` are not carried: the port's voxel path holds None
+there.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.liosam import imu_fusion, state
+from .ops import graph, imu, se3, voxelmap
+
+_TYPES = {cls.__name__: cls for cls in (
+    voxelmap.VoxelFeatureMap, voxelmap.VoxelMoments,
+    graph.PoseGraph, graph.PriorFactor, graph.BetweenFactor, graph.GpsFactor,
+    se3.Pose, imu_fusion.FilterState, imu.NavState, imu.ImuBias,
+    state.LioState, state.KeyframeStore, state.LocalMap,
+)}
+_NOT_CARRIED = {"HashGrid"}
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def from_numpy(tree, device):
+    """msst_tpu NamedTuple of numpy arrays -> the port's NamedTuple."""
+    if _is_namedtuple(tree):
+        name = type(tree).__name__
+        if name in _NOT_CARRIED:
+            return None
+        cls = _TYPES[name]
+        return cls(**{f: from_numpy(getattr(tree, f), device)
+                      for f in cls._fields})
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def to_numpy(obj):
+    """The port's NamedTuple of tensors -> the same NamedTuple of numpy
+    arrays (None stays None)."""
+    if _is_namedtuple(obj):
+        return type(obj)(*(to_numpy(v) for v in obj))
+    if obj is None:
+        return None
+    return obj.detach().cpu().numpy()

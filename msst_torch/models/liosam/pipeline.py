@@ -1,0 +1,255 @@
+"""Host-side orchestration of the LIO-SAM pipeline (port of
+``msst_tpu.models.liosam.pipeline.LioSam`` at window=1): pad raw sensor
+arrays to the static shapes, thread the state through the odometry step on
+the chosen device, and collect the trajectory.
+
+Not ported yet, and refused where selected: windowed dispatch (window > 1,
+ROADMAP item L4) and loop closure (ROADMAP item L5)."""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .mapping import odometry_step_packed
+from .params import LioParams
+from .state import LioState, init_state
+
+_SENSOR_KEYS = ("imu_t", "imu_gyro", "imu_acc", "imu_rpy", "gps_xyz",
+                "gps_sigma")
+# poses and map telemetry are copied to the host in batches of this many
+# scans (one copy each, not one per scan)
+_READBACK_INTERVAL = 8
+
+
+@dataclasses.dataclass
+class Trajectory:
+    times: list
+    poses: list  # 4x4 matrices
+
+    def as_matrices(self) -> np.ndarray:
+        return np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))
+
+
+class LioSam:
+    """Tightly-coupled LiDAR-inertial odometry, one step per scan on
+    `device` (a CUDA device runs the voxel lookup as the CUDA kernel)."""
+
+    def __init__(self, params: Optional[LioParams] = None, device="cpu",
+                 window: int = 1, boot_scans: int = 8):
+        self.p = params or LioParams()
+        if window != 1:
+            raise NotImplementedError(
+                f"window={window}: windowed dispatch is not ported yet "
+                "(ROADMAP item L4); use window=1")
+        if self.p.loop_closure_enabled:
+            raise NotImplementedError(
+                "loop closure is not ported yet (ROADMAP item L5); pass "
+                "loop_closure_enabled=False")
+        self.device = torch.device(device)
+        # dynamic init: the first scan is deskewed with an unknown velocity,
+        # so its smeared cloud anchors the map ~v*sweep/2 off the start
+        # pose.  Buffer the first `boot_scans` scans, read back the
+        # converged velocity, reset, and re-feed with the hint
+        # (StepInput.init_vel_*).  msst_tpu boots on 8 scans at window=1 and
+        # on its whole first window otherwise (64 scans in bench.py).
+        self._init_vel = None
+        self._boot_scans: Optional[list] = [] if self.p.dynamic_init else None
+        self._boot_n = boot_scans
+        self.state: LioState = init_state(self.p, self.device)
+        self._trajectory = Trajectory([], [])
+        self._scan_count = 0
+        self._last_scan_time = None
+        # device times are float32 offsets from the first received stamp
+        # (absolute epoch stamps would collapse every dt in float32)
+        self._epoch: Optional[float] = None
+        self._pending: list = []  # (time, pose_matrix, occupancy, dropped)
+        # capped-structure health: running max of the local-map occupancy
+        # and the cumulative overflow-dropped cell count
+        self.map_health = {"max_occupancy": 0.0, "dropped_cells": 0}
+        self._overflow_warned = False
+
+    # -- input assembly -----------------------------------------------------
+
+    def _make_input_np(self, xyz, ring, time_rel, scan_start,
+                       imu_t=None, imu_gyro=None, imu_acc=None, imu_rpy=None,
+                       gps_xyz=None, gps_sigma=None):
+        """Pack one scan into two host arrays (points, aux); layout in
+        mapping.unpack_step_input."""
+        p = self.p
+        n = min(len(xyz), p.max_points)
+        points = np.zeros((p.max_points, 5), np.float32)
+        points[:n, :3] = np.asarray(xyz, np.float32)[:n]
+        points[:n, 3] = np.asarray(time_rel, np.float32)[:n]
+        points[:n, 4] = np.asarray(ring, np.float32)[:n]
+        aux = self._make_aux_np(n, time_rel, scan_start, imu_t=imu_t,
+                                imu_gyro=imu_gyro, imu_acc=imu_acc,
+                                imu_rpy=imu_rpy, gps_xyz=gps_xyz,
+                                gps_sigma=gps_sigma)
+        return points, aux
+
+    def _make_aux_np(self, n, time_rel, scan_start,
+                     imu_t=None, imu_gyro=None, imu_acc=None, imu_rpy=None,
+                     gps_xyz=None, gps_sigma=None):
+        p = self.p
+        T = p.imu_window
+        if imu_t is None or len(imu_t) == 0:
+            imu_t = np.zeros(0, np.float64)
+            imu_gyro = np.zeros((0, 3), np.float32)
+            imu_acc = np.zeros((0, 3), np.float32)
+        # selection + rebasing in float64; only offsets are cast to float32
+        scan_start = float(scan_start)
+        if self._epoch is None:
+            self._epoch = scan_start
+        imu_t = np.asarray(imu_t, np.float64)
+        imu_gyro = np.asarray(imu_gyro, np.float32)
+        imu_acc = np.asarray(imu_acc, np.float32)
+
+        scan_end = scan_start + (float(np.max(time_rel)) if n else 0.1)
+        in_scan = (imu_t >= scan_start - 0.01) & (imu_t <= scan_end + 0.01)
+        t_prev = (self._last_scan_time if self._last_scan_time is not None
+                  else scan_start)
+        in_pre = (imu_t >= t_prev) & (imu_t <= scan_start + 0.005)
+
+        aux = np.zeros((2 * T + 3, 8), np.float32)
+
+        def fill(rows, sel):
+            k = min(int(sel.sum()), T)
+            aux[rows:rows + k, 0] = (imu_t[sel][:k] - self._epoch).astype(np.float32)
+            aux[rows:rows + k, 1:4] = imu_gyro[sel][:k]
+            aux[rows:rows + k, 4:7] = imu_acc[sel][:k]
+            aux[rows:rows + k, 7] = 1.0
+            return k
+
+        k_scan = fill(0, in_scan)
+        fill(T, in_pre)
+        misc = aux[2 * T]
+        misc[0] = scan_start - self._epoch
+        misc[1] = n
+        misc[2] = 1.0 if k_scan > 1 else 0.0
+        if imu_rpy is not None:
+            misc[3:6] = np.asarray(imu_rpy, np.float32)
+        misc[6] = 1.0 if gps_xyz is not None else 0.0
+        if gps_xyz is not None:
+            aux[2 * T + 1, :3] = np.asarray(gps_xyz, np.float32)
+            aux[2 * T + 1, 3:6] = np.asarray(
+                gps_sigma if gps_sigma is not None else np.ones(3), np.float32)
+        else:
+            aux[2 * T + 1, 3:6] = 1.0
+        misc[7] = 1.0  # scan-valid flag
+        if self._init_vel is not None:
+            aux[2 * T + 2, :3] = self._init_vel
+            aux[2 * T + 2, 3] = 1.0
+        return aux
+
+    # -- public API ---------------------------------------------------------
+
+    def process_scan(self, xyz, ring, time_rel, scan_start, **sensors):
+        """Feed one scan (+ optional imu_t/imu_gyro/imu_acc/imu_rpy/gps_xyz/
+        gps_sigma keyword arrays; other keys are ignored); returns the
+        StepOutput."""
+        sensors = {k: v for k, v in sensors.items() if k in _SENSOR_KEYS}
+        points, aux = self._make_input_np(xyz, ring, time_rel, scan_start,
+                                          **sensors)
+        self.state, out = odometry_step_packed(
+            self.state, torch.from_numpy(points).to(self.device),
+            torch.from_numpy(aux).to(self.device), self.p)
+        self._last_scan_time = float(scan_start)
+        self._scan_count += 1
+        self._pending.append((scan_start, out.pose_matrix,
+                              out.map_occupancy, out.map_dropped))
+
+        if self._boot_scans is not None:
+            self._boot_scans.append(dict(xyz=xyz, ring=ring,
+                                         time_rel=time_rel,
+                                         scan_start=scan_start, **sensors))
+            if self._scan_count >= self._boot_n:
+                res = self._bootstrap_refeed()
+                return res if res is not None else out
+
+        if len(self._pending) >= _READBACK_INTERVAL:
+            self._flush_pending()
+        return out
+
+    def _bootstrap_refeed(self):
+        """Dynamic init second pass: reset the estimator and replay the
+        buffered boot scans with the converged velocity as the first-scan
+        deskew/filter hint.  Returns the output of the last re-fed scan."""
+        from scipy.spatial.transform import Rotation as Rs
+
+        scans = self._boot_scans
+        self._boot_scans = None  # the re-feed must not re-trigger
+        fs = self.state.filter
+        q = fs.nav.q.double().cpu().numpy()   # wxyz
+        v = fs.nav.v.double().cpu().numpy()
+        if not (np.isfinite(q).all() and np.isfinite(v).all()
+                and np.linalg.norm(v) < 1e3):
+            return None  # keep the first pass; nothing sane to re-feed with
+        v_b = Rs.from_quat([q[1], q[2], q[3], q[0]]).inv().apply(v)
+        self._init_vel = v_b.astype(np.float32)
+
+        self.state = init_state(self.p, self.device)
+        self._trajectory = Trajectory([], [])
+        self._pending.clear()
+        self._scan_count = 0
+        self._last_scan_time = None
+        out = None
+        for s in scans:
+            kw = {k: val for k, val in s.items()
+                  if k not in ("xyz", "ring", "time_rel", "scan_start")}
+            out = self.process_scan(s["xyz"], s["ring"], s["time_rel"],
+                                    s["scan_start"], **kw)
+        return out
+
+    def _flush_pending(self):
+        """Fetch the pending poses and map telemetry in one copy each, then
+        check for divergence (reinitialize on a non-finite pose)."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        times = [t for t, *_ in pending]
+        mats = torch.stack([m for _, m, _, _ in pending]).cpu().numpy()
+        occ = torch.stack([o for _, _, o, _ in pending]).cpu().numpy()
+        drop = torch.stack([d for _, _, _, d in pending]).cpu().numpy()
+        self._update_map_health(occ, drop)
+        if not np.isfinite(mats).all():
+            warnings.warn("odometry diverged (non-finite pose); reinitializing")
+            self.state = init_state(self.p, self.device)
+            self._last_scan_time = None
+            self._init_vel = None  # a stale bootstrap hint must not re-apply
+            for t, m in zip(times, mats):  # keep the finite prefix
+                if np.isfinite(m).all():
+                    self._trajectory.times.append(t)
+                    self._trajectory.poses.append(m)
+            return
+        self._trajectory.times.extend(times)
+        self._trajectory.poses.extend(list(mats))
+
+    def _update_map_health(self, occ, drop):
+        """Fold flushed telemetry into map_health; warn once on saturation
+        (occupancy > 0.98) or dropped cells — overflow thins the map with a
+        spatial bias, so it must not pass silently."""
+        h = self.map_health
+        max_occ = float(np.max(occ))
+        dropped = int(np.max(drop))
+        h["max_occupancy"] = max(h["max_occupancy"], max_occ)
+        h["dropped_cells"] = max(h["dropped_cells"], dropped)
+        if not self._overflow_warned and (max_occ > 0.98 or dropped > 0):
+            warnings.warn(
+                f"local-map capacity saturated: occupancy {max_occ:.2f}, "
+                f"{dropped} cells dropped — raise map_corner_cap/map_surf_cap")
+            self._overflow_warned = True
+
+    @property
+    def trajectory(self) -> Trajectory:
+        """Host trajectory (drains pending device results first)."""
+        self._flush_pending()
+        return self._trajectory
+
+    def flush(self):
+        """Drain pending device results into the host trajectory."""
+        self._flush_pending()

@@ -1,0 +1,104 @@
+"""Deterministic centroid voxel-grid downsampling (port of
+``msst_tpu.ops.voxel.voxel_downsample``), replacing the reference's
+``pcl::VoxelGrid`` calls (``featureExtraction.cpp:232-236``,
+``mapOptmization.cpp:955-967``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import segments
+from .numeric import div, mul_i32
+from .pointcloud import Cloud
+
+Tensor = torch.Tensor
+
+_INVALID = 2**31 - 1
+
+
+def _stable_order(*keys: Tensor) -> Tensor:
+    """Permutation sorting rows lexicographically by ``keys`` (primary first),
+    stable in the input order like ``lax.sort``: one stable sort per key,
+    least significant first."""
+    order = torch.argsort(keys[-1], stable=True)
+    for k in reversed(keys[:-1]):
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def voxel_downsample(
+    cloud: Cloud,
+    leaf: float,
+    capacity: Optional[int] = None,
+    extra_key: Optional[Tensor] = None,
+    uniform_overflow: bool = True,
+) -> Cloud:
+    """Centroid voxel filter, msst_tpu's semantics exactly:
+
+    * extra_key: optional (N,) int appended to the voxel key (the ring id,
+      for the reference's per-ring surface downsample), 7 bits, clamped to
+      [0, 127].
+    * the key packs (extra, cx, cy) into one int32 with cx/cy clamped to
+      +-1024 cells around the FIRST valid point's cell; cz rides a second key.
+    * uniform_overflow: order voxels by a spatial hash of their world cell
+      first, so overflow beyond `capacity` thins the cloud evenly; False
+      orders by the packed key (overflow drops the highest keys).
+    * positions are summed demeaned by their cell centre and clipped to half
+      a leaf, so float32 sums keep metric precision.
+    """
+    n = cloud.capacity
+    n_out = capacity or n
+    dev = cloud.xyz.device
+    c = torch.floor(div(cloud.xyz, leaf)).to(torch.int32)
+    invalid = ~cloud.mask
+    origin_cell = c[torch.argmax(cloud.mask.to(torch.uint8))]
+    c = c - origin_cell
+    cxy = torch.clamp(c[:, :2], -1024, 1023)
+    if extra_key is not None:
+        extra = torch.clamp(extra_key.to(torch.int32), 0, 127)
+    else:
+        extra = torch.zeros((), dtype=torch.int32, device=dev)
+    hi = (extra << 22) | ((cxy[:, 0] + 1024) << 11) | (cxy[:, 1] + 1024)
+    hi = torch.where(invalid, _INVALID, hi)
+    lo = c[:, 2]
+    if uniform_overflow:
+        # hash of the absolute (clamp-then-restored) cell, so the thinning
+        # does not depend on which point happened to be first valid
+        ha = cxy[:, 0] + origin_cell[0]
+        hb = cxy[:, 1] + origin_cell[1]
+        hc = lo + origin_cell[2]
+        h = (mul_i32(ha, 73856093) ^ mul_i32(hb, 19349663)
+             ^ mul_i32(hc, 83492791))
+        h = torch.where(invalid, _INVALID, h)
+        order = _stable_order(h, hi, lo)
+    else:
+        order = _stable_order(hi, lo)
+    cell = torch.cat([cxy, c[:, 2:3]], dim=1) + origin_cell
+    center = (cell.to(cloud.xyz.dtype) + 0.5) * leaf
+    r = torch.clamp(cloud.xyz - center, -0.5 * leaf, 0.5 * leaf)
+
+    hi_s, lo_s = hi[order], lo[order]
+    r_sorted = r[order]
+    attrs_s = cloud.attrs[order]
+    valid_s = hi_s != _INVALID
+    new_voxel = (hi_s != torch.roll(hi_s, 1)) | (lo_s != torch.roll(lo_s, 1))
+    new_voxel[0] = True
+    new_voxel = new_voxel & valid_s
+    seg = torch.cumsum(new_voxel.to(torch.int64), 0) - 1
+    seg = torch.where(valid_s, seg, n_out)
+
+    cell_s = torch.stack([((hi_s >> 11) & 2047) - 1024,
+                          (hi_s & 2047) - 1024, lo_s], dim=1) + origin_cell
+    w = valid_s.to(r_sorted.dtype)[:, None]
+    vals = segments.segment_sum(
+        torch.cat([r_sorted * w, attrs_s * w, w], dim=1), seg, n_out)
+    rsums, asums, counts = vals[:, :3], vals[:, 3:-1], vals[:, -1]
+    cell_v, _ = segments.segment_first(cell_s, seg, n_out)
+    center_v = (cell_v.to(r_sorted.dtype) + 0.5) * leaf
+
+    denom = torch.clamp(counts, min=1.0)[:, None]
+    n_voxels = torch.sum(new_voxel.to(torch.int32))
+    mask_out = torch.arange(n_out, device=dev) < torch.clamp(n_voxels, max=n_out)
+    return Cloud(center_v + rsums / denom, mask_out, asums / denom)
