@@ -4,9 +4,9 @@
 turned into numpy arrays (``jax.tree.map(np.asarray, x)``) and builds the
 port's NamedTuple of the same name and fields, with tensors on `device`;
 ``to_numpy(obj)`` turns the port's tensors back into numpy arrays.  Dtypes
-are kept (bool stays bool, int32 stays int32).  The knn hash grids of
-msst_tpu's ``LocalMap`` are not carried: the port's voxel path holds None
-there.
+are kept (bool stays bool, int32 stays int32).  Every leaf is carried,
+the knn hash grids of ``LocalMap`` included, so a state of either
+scan-to-map method taken from msst_tpu is a state the port can step from.
 """
 
 from __future__ import annotations
@@ -15,15 +15,14 @@ import numpy as np
 import torch
 
 from .models.liosam import imu_fusion, state
-from .ops import graph, imu, se3, voxelmap
+from .ops import graph, imu, knn, se3, voxelmap
 
 _TYPES = {cls.__name__: cls for cls in (
-    voxelmap.VoxelFeatureMap, voxelmap.VoxelMoments,
+    voxelmap.VoxelFeatureMap, voxelmap.VoxelMoments, knn.HashGrid,
     graph.PoseGraph, graph.PriorFactor, graph.BetweenFactor, graph.GpsFactor,
     se3.Pose, imu_fusion.FilterState, imu.NavState, imu.ImuBias,
     state.LioState, state.KeyframeStore, state.LocalMap,
 )}
-_NOT_CARRIED = {"HashGrid"}
 
 
 def _is_namedtuple(x) -> bool:
@@ -33,10 +32,7 @@ def _is_namedtuple(x) -> bool:
 def from_numpy(tree, device):
     """msst_tpu NamedTuple of numpy arrays -> the port's NamedTuple."""
     if _is_namedtuple(tree):
-        name = type(tree).__name__
-        if name in _NOT_CARRIED:
-            return None
-        cls = _TYPES[name]
+        cls = _TYPES[type(tree).__name__]
         return cls(**{f: from_numpy(getattr(tree, f), device)
                       for f in cls._fields})
     return torch.from_numpy(np.array(tree)).to(device)

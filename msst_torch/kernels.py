@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
-# no --use_fast_math: the lookup's cell index needs IEEE division, and
+# no --use_fast_math: the kernels' cell indices need IEEE division, and
 # --fmad=false keeps a*b+c from contracting into an FMA that rounds once
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
@@ -37,6 +37,15 @@ _SIGNATURES = {
              _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
              _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
              _C.c_void_p, _C.c_void_p]),
+    },
+    "knn_query": {
+        "knn_query": (
+            _C.c_int,
+            [_C.c_void_p, _C.c_void_p, _C.c_int,
+             _C.c_void_p, _C.c_void_p, _C.c_int,
+             _C.c_void_p, _C.c_void_p, _C.c_int,
+             _C.c_void_p, _C.c_int, _C.c_int, _C.c_float,
+             _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
     },
 }
 

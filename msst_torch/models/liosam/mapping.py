@@ -7,8 +7,9 @@ single-scan path; the reference's ``mapOptmization`` per-scan pipeline,
 * roll/pitch slerp fusion + clamps (``transformUpdate`` :1312-1342),
 * keyframe gate (``saveFrame`` :1354-1379), prior/between/GPS factors
   (:1381-1475), graph solve, pose-history rewrite (``correctPoses``),
-* the incremental voxel local map (the reference's transformed-cloud cache,
-  ``extractCloud`` :899-938), and the ESKF update.
+* the local map (``extractCloud`` :899-938): the incremental voxel-feature
+  map of ``scan2map_method="voxel"``, or the rebuilt map clouds and hash
+  grids of ``scan2map_method="knn"``, and the ESKF update.
 
 msst_tpu compiles this into one program with ``lax.cond`` branches; here the
 branches are Python ``if``s on flags read back from the device.  Paths the
@@ -24,7 +25,7 @@ import torch
 
 from ...ops import graph as graph_ops
 from ...ops import imu as imu_ops
-from ...ops import registration, se3, voxel, voxelmap
+from ...ops import knn, registration, se3, voxel, voxelmap
 from ...ops.pointcloud import Cloud, compact
 from . import imu_fusion
 from .frontend import ScanInput, run_frontend
@@ -152,6 +153,60 @@ def _gather_selected(kf: KeyframeStore, sel_idx: Tensor, sel_ok: Tensor):
             gather(kf.surf_xyz, kf.surf_mask))
 
 
+def _gather_nearby_world(kf: KeyframeStore, position: Tensor,
+                         scan_time: Tensor, p: LioParams):
+    sel_idx, sel_ok = _select_nearby(kf, position, scan_time, p)
+    return _gather_selected(kf, sel_idx, sel_ok)
+
+
+def _assemble_local_map(kf: KeyframeStore, position: Tensor,
+                        scan_time: Tensor, p: LioParams):
+    """Nearby keyframes fused into fixed-cap masked map clouds
+    (``extractCloud`` :899-938: transform + density downsample).  The local
+    map lies within the search radius of `position`, far inside the packed
+    +-512-cell domain."""
+    corner_flat, surf_flat = _gather_nearby_world(kf, position, scan_time, p)
+    corner_map = voxel.voxel_downsample_packed(
+        corner_flat, p.mapping_corner_leaf_size, position,
+        capacity=p.map_corner_cap)
+    surf_map = voxel.voxel_downsample_packed(
+        surf_flat, p.mapping_surf_leaf_size, position,
+        capacity=p.map_surf_cap)
+    return corner_map, surf_map
+
+
+def _rebuild_local_map(kf: KeyframeStore, position: Tensor, scan_time: Tensor,
+                       p: LioParams) -> LocalMap:
+    """The knn method's local map, rebuilt around a new keyframe: the map
+    clouds and a hash grid over each (cell 1 m, the 5-NN gate's radius); the
+    voxel tables and moments are 8-row placeholders.  (The voxel method's
+    rebuild is ROADMAP item L2.)"""
+    dev = position.device
+    corner_map, surf_map = _assemble_local_map(kf, position, scan_time, p)
+
+    def vox(leaf, kind):
+        return voxelmap.build(torch.zeros((8, 3), device=dev),
+                              torch.zeros(8, dtype=torch.bool, device=dev),
+                              leaf, 8, kind,
+                              origin=torch.zeros(3, device=dev), table_size=16)
+
+    return LocalMap(
+        corner_xyz=corner_map.xyz, corner_mask=corner_map.mask,
+        surf_xyz=surf_map.xyz, surf_mask=surf_map.mask,
+        corner_grid=knn.build(corner_map.xyz, corner_map.mask, 1.0,
+                              p.knn_table_size),
+        surf_grid=knn.build(surf_map.xyz, surf_map.mask, 1.0,
+                            p.knn_table_size),
+        corner_vox=vox(p.vox_corner_leaf, "line"),
+        surf_vox=vox(p.vox_surf_leaf, "plane"),
+        corner_mom=voxelmap.empty_moments(8, dev),
+        surf_mom=voxelmap.empty_moments(8, dev),
+        anchor=position,
+        valid=torch.tensor(True, device=dev),
+        mom_dropped=torch.zeros(2, dtype=torch.int32, device=dev),
+    )
+
+
 def _group_bits(coarse: float, fine: float) -> Optional[int]:
     """k when coarse/fine == 2^k (k >= 0 int), else None: with a power-of-two
     leaf ratio the moment tables use the hierarchical key packing and the
@@ -242,11 +297,17 @@ def _kf_moments(kf: KeyframeStore, slot: int, pose6: Tensor, anchor: Tensor,
 
 
 def _map_telemetry(lm: LocalMap, p: LioParams) -> tuple[Tensor, Tensor]:
-    """(occupancy (2,) in [0, 1], dropped (2,) int32) of the moment tables."""
-    occ = torch.stack([
-        torch.sum(lm.corner_mom.key < voxelmap._BIG) / p.map_corner_cap,
-        torch.sum(lm.surf_mom.key < voxelmap._BIG) / p.map_surf_cap,
-    ])
+    """(occupancy (2,) in [0, 1], dropped (2,) int32) of the local map's
+    capped structures: the moment tables of the voxel method, the flat map
+    clouds of the knn method."""
+    if p.scan2map_method == "voxel":
+        occ = torch.stack([
+            torch.sum(lm.corner_mom.key < voxelmap._BIG) / p.map_corner_cap,
+            torch.sum(lm.surf_mom.key < voxelmap._BIG) / p.map_surf_cap,
+        ])
+    else:
+        occ = torch.stack([torch.mean(lm.corner_mask.to(torch.float32)),
+                           torch.mean(lm.surf_mask.to(torch.float32))])
     return occ.to(torch.float32), lm.mom_dropped
 
 
@@ -356,6 +417,12 @@ def _insert_keyframe(state: LioState, pose6: Tensor, scan_time: Tensor,
     opt6 = se3.Pose(graph.poses.q, graph.poses.t).to_vec6()
     kf = kf._replace(pose6=torch.where(kf.mask[:, None], opt6, kf.pose6))
     pos = kf.pose6[slot][3:]
+
+    if p.scan2map_method != "voxel":
+        # rebuild the cached local map around the (optimized) new keyframe
+        local_map = _rebuild_local_map(kf, pos, scan_time, p)
+        return state._replace(kf=kf, graph=graph, n_gps=n_gps,
+                              local_map=local_map, pose6=kf.pose6[slot])
 
     lm = state.local_map
     # re-bake triggers: no map yet, anchor domain exceeded, or baked poses
@@ -517,7 +584,15 @@ def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
 
     # --- scan-to-map against the cached local map
     registered = have_map and enough
-    if registered:
+    if registered and p.scan2map_method != "voxel":
+        res = registration.scan_to_map(
+            corner_ds.xyz, corner_ds.mask, surf_ds.xyz, surf_ds.mask,
+            lm.corner_grid, lm.corner_xyz, lm.surf_grid, lm.surf_xyz,
+            init6, max_iters=p.scan2map_max_iters,
+            candidates_per_cell=p.knn_candidates,
+            eig_threshold=p.degeneracy_threshold)
+        pose6, degenerate, s2m_iters = res.pose, res.degenerate, res.iterations
+    elif registered:
         res = registration.scan_to_map_voxel(
             corner_ds.xyz, corner_ds.mask, surf_ds.xyz, surf_ds.mask,
             lm.corner_vox, lm.surf_vox, init6,

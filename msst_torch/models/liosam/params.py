@@ -3,7 +3,7 @@
 
 Mirrors the reference's ``config/params.yaml`` (``include/utility.h:63-250``).
 Some fields only steer paths of msst_tpu that the port does not take yet
-(windowed uploads, Pallas routing, the knn map, loop closure); they stay so
+(windowed uploads, Pallas routing, loop closure); they stay so
 that one parameter object describes both packages.  Paths the port does not
 take raise ``NotImplementedError`` where they are selected.
 """
@@ -70,7 +70,9 @@ class LioParams:
     surrounding_keyframe_density: float = 2.0
     surrounding_keyframe_search_radius: float = 50.0
     scan2map_max_iters: int = 30
-    scan2map_method: str = "voxel"   # "voxel" (ported) | "knn" (not yet)
+    # "voxel": lookups in the voxel-feature map (kernel voxel_lookup.cu);
+    # "knn": the reference-faithful 5-NN path (kernel knn_query.cu)
+    scan2map_method: str = "voxel"
     # cost-plateau stop for the voxel GN
     plateau_rtol: float = 1e-3
     plateau_min_iters: int = 2
@@ -82,12 +84,13 @@ class LioParams:
     # exist (the graph is then at its optimum by construction)
     graph_lazy_solve: bool = True
     vox_source: str = "downsampled"  # rebuild-mode fit input (not ported)
-    # local-map maintenance: "incremental" (ported) | "rebuild" (not yet)
+    # local-map maintenance of the voxel method: "incremental" (ported) |
+    # "rebuild" (not yet); the knn method always rebuilds its map clouds
     map_update: str = "incremental"
     map_anchor_radius: float = 40.0   # re-bake beyond this from the anchor
     map_stale_tolerance: float = 0.2  # re-bake when a baked pose moved more
     # Pallas routing switch of msst_tpu.  The port does not read it: on a
-    # CUDA tensor the voxel lookup is always the CUDA kernel.
+    # CUDA tensor the voxel lookup and the knn query are always CUDA kernels.
     use_pallas: str = "off"
     degeneracy_threshold: float = 100.0  # JtJ eigenvalue gate (LMOptimization :1244)
     # feature-voxel leaves: power-of-two multiples of the mapping leaves, so

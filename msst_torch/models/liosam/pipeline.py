@@ -37,11 +37,18 @@ class Trajectory:
 
 class LioSam:
     """Tightly-coupled LiDAR-inertial odometry, one step per scan on
-    `device` (a CUDA device runs the voxel lookup as the CUDA kernel)."""
+    `device`: the GPU unless the caller asks for ``device="cpu"`` (on a CUDA
+    device the scan-to-map correspondences run as the CUDA kernels, on the
+    CPU as their plain twins)."""
 
-    def __init__(self, params: Optional[LioParams] = None, device="cpu",
+    def __init__(self, params: Optional[LioParams] = None, device="cuda",
                  window: int = 1, boot_scans: int = 8):
         self.p = params or LioParams()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"LioSam runs on device={str(device)!r} and no CUDA device is "
+                "present; pass device='cpu' to run on the CPU")
         if window != 1:
             raise NotImplementedError(
                 f"window={window}: windowed dispatch is not ported yet "
@@ -50,7 +57,6 @@ class LioSam:
             raise NotImplementedError(
                 "loop closure is not ported yet (ROADMAP item L5); pass "
                 "loop_closure_enabled=False")
-        self.device = torch.device(device)
         # dynamic init: the first scan is deskewed with an unknown velocity,
         # so its smeared cloud anchors the map ~v*sweep/2 off the start
         # pose.  Buffer the first `boot_scans` scans, read back the

@@ -10,12 +10,12 @@ never write into the tensors of the one they were given.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ...ops import graph as graph_ops
-from ...ops import voxelmap
+from ...ops import knn, voxelmap
 from . import imu_fusion
 from .params import LioParams
 
@@ -25,14 +25,10 @@ Tensor = torch.Tensor
 def require_ported(p: LioParams) -> None:
     """Raise for parameter choices whose paths the port does not take yet
     (the ROADMAP items name them)."""
-    if p.scan2map_method != "voxel":
+    if p.scan2map_method == "voxel" and p.map_update != "incremental":
         raise NotImplementedError(
-            f"scan2map_method={p.scan2map_method!r}: the knn scan-to-map path "
-            "and its kernel B2 are not ported yet (ROADMAP item L6)")
-    if p.map_update != "incremental":
-        raise NotImplementedError(
-            f"map_update={p.map_update!r}: the rebuild local map is not "
-            "ported yet (ROADMAP item L2)")
+            f"map_update={p.map_update!r}: the rebuild local map of the "
+            "voxel method is not ported yet (ROADMAP item L2)")
 
 
 class KeyframeStore(NamedTuple):
@@ -58,16 +54,20 @@ class KeyframeStore(NamedTuple):
 
 
 class LocalMap(NamedTuple):
-    """Cached scan-matching map, rebuilt when a keyframe is inserted.  The
-    flat clouds are 8-row placeholders on the voxel path and the knn hash
-    grids are not carried (None): the voxel-feature tables are the map."""
+    """Cached scan-matching map, rebuilt when a keyframe is inserted.
+
+    On the voxel path the voxel-feature tables are the map: the flat clouds
+    are 8-row placeholders and the knn hash grids are None.  On the knn path
+    the flat clouds (map_corner_cap / map_surf_cap rows) and their hash
+    grids are the map, and the voxel tables and moments are 8-row
+    placeholders."""
 
     corner_xyz: Tensor
     corner_mask: Tensor
     surf_xyz: Tensor
     surf_mask: Tensor
-    corner_grid: Any
-    surf_grid: Any
+    corner_grid: Optional[knn.HashGrid]
+    surf_grid: Optional[knn.HashGrid]
     corner_vox: voxelmap.VoxelFeatureMap
     surf_vox: voxelmap.VoxelFeatureMap
     corner_mom: voxelmap.VoxelMoments
@@ -92,25 +92,37 @@ class LioState(NamedTuple):
 
 
 def _empty_local_map(p: LioParams, device) -> LocalMap:
-    def vox(cap, leaf, kind):
-        return voxelmap.build(torch.zeros((cap, 3), device=device),
-                              torch.zeros(cap, dtype=torch.bool, device=device),
-                              leaf, cap, kind, origin=torch.zeros(3, device=device),
-                              table_size=2 * cap)
+    use_vox = p.scan2map_method == "voxel"
 
-    tiny_xyz = torch.zeros((8, 3), device=device)
-    tiny_mask = torch.zeros(8, dtype=torch.bool, device=device)
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def grid(cap):
+        if use_vox:
+            return None
+        return knn.build(zeros(cap, 3), zeros(cap, dtype=torch.bool), 1.0,
+                         p.knn_table_size)
+
+    def vox(cap, leaf, kind):
+        c = cap if use_vox else 8
+        return voxelmap.build(zeros(c, 3), zeros(c, dtype=torch.bool), leaf,
+                              c, kind, origin=zeros(3), table_size=2 * c)
+
+    cc = 8 if use_vox else p.map_corner_cap
+    sc = 8 if use_vox else p.map_surf_cap
     return LocalMap(
-        corner_xyz=tiny_xyz, corner_mask=tiny_mask,
-        surf_xyz=tiny_xyz, surf_mask=tiny_mask,
-        corner_grid=None, surf_grid=None,
+        corner_xyz=zeros(cc, 3), corner_mask=zeros(cc, dtype=torch.bool),
+        surf_xyz=zeros(sc, 3), surf_mask=zeros(sc, dtype=torch.bool),
+        corner_grid=grid(p.map_corner_cap), surf_grid=grid(p.map_surf_cap),
         corner_vox=vox(p.vox_corner_cap, p.vox_corner_leaf, "line"),
         surf_vox=vox(p.vox_surf_cap, p.vox_surf_leaf, "plane"),
-        corner_mom=voxelmap.empty_moments(p.map_corner_cap, device),
-        surf_mom=voxelmap.empty_moments(p.map_surf_cap, device),
-        anchor=torch.zeros(3, device=device),
+        corner_mom=voxelmap.empty_moments(p.map_corner_cap if use_vox else 8,
+                                          device),
+        surf_mom=voxelmap.empty_moments(p.map_surf_cap if use_vox else 8,
+                                        device),
+        anchor=zeros(3),
         valid=torch.tensor(False, device=device),
-        mom_dropped=torch.zeros(2, dtype=torch.int32, device=device),
+        mom_dropped=zeros(2, dtype=torch.int32),
     )
 
 

@@ -1,0 +1,223 @@
+"""Hash-grid nearest-neighbour search (port of ``msst_tpu.ops.knn``).
+
+Replaces the ``pcl::KdTreeFLANN`` 5-NN corner/surf map lookups inside
+scan-to-map Gauss-Newton (``mapOptmization.cpp:987,1081``).  Points are
+bucketed by a spatial hash of their cell (cell size >= the query radius, so
+a query only needs the 27 neighbouring cells).  The bucket table is built
+with one stable sort; a query gathers up to a fixed number of candidates a
+cell and takes the exact k smallest among them.  It is exact k-NN as long
+as no bucket overflows its candidate cap and the true neighbours lie within
+one cell size of the query.
+
+:func:`query` is the hot op of the knn scan-to-map path.  On a CUDA tensor
+it runs as the hand-written kernel ``msst_torch/csrc/knn_query.cu``, on a
+CPU tensor as its plain PyTorch twin :func:`query_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import segments
+from .numeric import hash3 as _hash_coords
+
+Tensor = torch.Tensor
+
+# the 27 neighbour cells in probe order: dx outermost, dz innermost
+_OFFSETS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                 for dz in (-1, 0, 1))
+
+# largest k the CUDA kernel keeps in its per-thread sorted list
+KERNEL_MAX_K = 64
+
+
+class HashGrid(NamedTuple):
+    """Built spatial hash over a fixed-capacity point set."""
+
+    xyz: Tensor           # (N, 3) points sorted by bucket
+    orig_idx: Tensor      # (N,) int32 index into the original array
+    bucket_start: Tensor  # (H,) int32 offset of each bucket in the sorted arrays
+    bucket_count: Tensor  # (H,) int32
+    cell_size: Tensor     # () float32
+
+    @property
+    def table_size(self) -> int:
+        return self.bucket_start.shape[0]
+
+
+class KnnResult(NamedTuple):
+    idx: Tensor     # (Q, k) int32 indices into the ORIGINAL point array
+    sqdist: Tensor  # (Q, k) squared distances, inf where no neighbour
+    valid: Tensor   # (Q, k) bool
+
+
+def build(xyz: Tensor, mask: Tensor, cell_size: float,
+          table_size: int = 8192) -> HashGrid:
+    """Hash, sort, bucket offsets.  The sort is stable, as msst_tpu's: the
+    order within a bucket decides which points are among the first
+    candidates when a bucket overflows, and every tie of a query.  Masked
+    points go to an overflow bucket past the table."""
+    cell = torch.tensor(cell_size, dtype=torch.float32, device=xyz.device)
+    coords = torch.floor(xyz / cell).to(torch.int32)
+    h = _hash_coords(coords, table_size)
+    h = torch.where(mask, h, table_size)
+    order = torch.argsort(h, stable=True)
+    starts, ends = segments.segment_boundaries(h[order], table_size)
+    return HashGrid(xyz=xyz[order], orig_idx=order.to(torch.int32),
+                    bucket_start=starts.to(torch.int32),
+                    bucket_count=(ends - starts).to(torch.int32),
+                    cell_size=cell)
+
+
+def _small_topk_min(d2: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """The k smallest of each row, ascending, by k masked argmin passes:
+    equal values come out in ascending lane order, and once a row holds only
+    inf the pick is lane 0.  (msst_tpu switches to ``lax.top_k`` above
+    k = 16; that differs only in the order of equal values.)"""
+    rows = torch.arange(d2.shape[0], device=d2.device)
+    vals, idxs = [], []
+    work = d2.clone()
+    for _ in range(k):
+        i = torch.argmin(work, dim=1)
+        vals.append(work[rows, i])
+        idxs.append(i)
+        work[rows, i] = torch.inf
+    return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
+
+
+def query_plain(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
+                candidates_per_cell: int = 16,
+                max_sqdist: float = math.inf) -> KnnResult:
+    """The query in plain PyTorch (the kernel's twin), step by step as
+    msst_tpu's ``knn.query``: gather (Q, 27*C) candidates, k masked argmins.
+
+    A probe whose bucket equals an earlier probe's contributes nothing.  A
+    slot without a neighbour holds inf and the index of the first lane
+    (the first point of probe 0's bucket, or the last sorted point when
+    that bucket is empty), so every index lies in [0, N)."""
+    C = candidates_per_cell
+    Qn = q_xyz.shape[0]
+    dev = q_xyz.device
+    n = grid.xyz.shape[0]
+    offsets = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
+    qc = torch.floor(q_xyz / grid.cell_size).to(torch.int32)
+    cells = qc[:, None, :] + offsets[None]                      # (Q, 27, 3)
+    hb = _hash_coords(cells, grid.table_size).long()            # (Q, 27)
+    start = grid.bucket_start[hb]
+    count = grid.bucket_count[hb]
+    lane = torch.arange(C, dtype=torch.int32, device=dev)
+    cand = start[..., None] + lane                              # (Q, 27, C)
+    ok = lane < count[..., None]
+    cand = torch.where(ok, cand, n - 1).reshape(Qn, 27 * C).long()
+
+    eq = hb[:, :, None] == hb[:, None, :]                       # (Q, 27, 27)
+    earlier = torch.tril(torch.ones((27, 27), dtype=torch.bool, device=dev),
+                         diagonal=-1)
+    first_probe = ~torch.any(eq & earlier[None], dim=2)
+    ok = (ok & first_probe[..., None]).reshape(Qn, 27 * C)
+
+    diff = grid.xyz[cand] - q_xyz[:, None, :]                   # (Q, 27C, 3)
+    # written out in the kernel's order: (dx*dx + dy*dy) + dz*dz
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+        + diff[..., 2] * diff[..., 2]
+    d2 = torch.where(ok & q_mask[:, None], d2, torch.inf)
+    d2k, sel = _small_topk_min(d2, k)
+    idx = torch.gather(cand, 1, sel)
+    valid = torch.isfinite(d2k) & (d2k <= max_sqdist)
+    return KnnResult(grid.orig_idx[idx], d2k, valid)
+
+
+def _query_cuda(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int,
+                candidates_per_cell: int, max_sqdist: float) -> KnnResult:
+    """Launch ``knn_query`` (msst_torch/csrc/knn_query.cu) on the current
+    stream.  Raises on anything the kernel does not take."""
+    from .. import kernels
+
+    Qn = q_xyz.shape[0]
+    n = grid.xyz.shape[0]
+    dev = q_xyz.device
+    args = {"q_xyz": q_xyz, "q_mask": q_mask, "grid.xyz": grid.xyz,
+            "grid.orig_idx": grid.orig_idx,
+            "grid.bucket_start": grid.bucket_start,
+            "grid.bucket_count": grid.bucket_count,
+            "grid.cell_size": grid.cell_size}
+    for name, t in args.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in ("q_xyz", "grid.xyz", "grid.cell_size"):
+        if args[name].dtype != torch.float32:
+            raise ValueError(f"{name} must be float32")
+    for name in ("grid.orig_idx", "grid.bucket_start", "grid.bucket_count"):
+        if args[name].dtype != torch.int32:
+            raise ValueError(f"{name} must be int32")
+    if q_mask.dtype != torch.bool:
+        raise ValueError("q_mask must be bool")
+    if q_xyz.shape != (Qn, 3) or q_mask.shape != (Qn,):
+        raise ValueError("q_xyz must be (Q, 3) and q_mask (Q,)")
+    if n < 1 or grid.xyz.shape != (n, 3) or grid.orig_idx.shape != (n,):
+        raise ValueError("grid.xyz must be (N, 3) with N >= 1 and "
+                         "grid.orig_idx (N,)")
+    if (grid.table_size < 1
+            or grid.bucket_count.shape != grid.bucket_start.shape):
+        raise ValueError("grid.bucket_start and grid.bucket_count must be "
+                         "(H,) with H >= 1")
+    if grid.cell_size.numel() != 1:
+        raise ValueError("grid.cell_size must hold one value")
+    if not 1 <= k <= KERNEL_MAX_K:
+        raise ValueError(f"k={k} outside [1, {KERNEL_MAX_K}]")
+    if candidates_per_cell < 1:
+        raise ValueError("candidates_per_cell must be >= 1")
+
+    sqdist = torch.empty((Qn, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((Qn, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((Qn, k), dtype=torch.bool, device=dev)
+    if Qn:
+        lib = kernels.load("knn_query")
+        ptr = ctypes.c_void_p
+        err = lib.knn_query(
+            ptr(q_xyz.data_ptr()), ptr(q_mask.data_ptr()), Qn,
+            ptr(grid.xyz.data_ptr()), ptr(grid.orig_idx.data_ptr()), n,
+            ptr(grid.bucket_start.data_ptr()),
+            ptr(grid.bucket_count.data_ptr()), grid.table_size,
+            ptr(grid.cell_size.data_ptr()), k, candidates_per_cell,
+            float(max_sqdist),
+            ptr(sqdist.data_ptr()), ptr(idx.data_ptr()), ptr(valid.data_ptr()),
+            ptr(torch.cuda.current_stream(dev).cuda_stream))
+        query.launches += 1
+        if err != 0:
+            raise RuntimeError(f"knn_query launch failed: cudaError {err}")
+    return KnnResult(idx, sqdist, valid)
+
+
+def query(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
+          candidates_per_cell: int = 16,
+          max_sqdist: float = math.inf) -> KnnResult:
+    """k-NN within the 27-cell neighbourhood of each query point
+    (msst_tpu's ``knn.query`` contract).
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the CUDA
+    kernel (msst_tpu's Pallas ``knn_pallas.query_pallas`` on the TPU) or
+    raises.  ``query.launches`` counts kernel launches."""
+    if q_xyz.device.type == "cpu":
+        return query_plain(grid, q_xyz, q_mask, k, candidates_per_cell,
+                           max_sqdist)
+    return _query_cuda(grid, q_xyz, q_mask, k, candidates_per_cell,
+                       max_sqdist)
+
+
+query.launches = 0
+
+
+def radius_count(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, radius: float,
+                 candidates_per_cell: int = 16) -> Tensor:
+    """Number of grid points within `radius` of each query (27-cell scope)."""
+    res = query(grid, q_xyz, q_mask, k=candidates_per_cell,
+                max_sqdist=radius * radius,
+                candidates_per_cell=candidates_per_cell)
+    return torch.sum(res.valid, dim=1)

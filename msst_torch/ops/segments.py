@@ -2,7 +2,8 @@
 ``msst_tpu.ops.segments``).
 
 msst_tpu sums segments as differences of prefix sums because scatters are
-slow on its device; here a scatter-add (``index_add_``) does it directly.
+slow on its device; here a scatter-add (``index_add_``) does it directly,
+and the row range of each segment comes from two binary searches.
 Callers keep msst_tpu's cell-centre demeaning: they pass positions minus
 their cell centre (|r| <= leaf/2), so float32 sums keep metric precision
 however far the cloud sits from the origin.
@@ -40,3 +41,15 @@ def segment_first(vals: Tensor, seg: Tensor, num_segments: int
     first = first[:num_segments]
     occupied = first < n
     return vals[torch.where(occupied, first, 0)], occupied
+
+
+def segment_boundaries(seg: Tensor, num_segments: int) -> tuple[Tensor, Tensor]:
+    """(lo, hi) row ranges per segment id, as msst_tpu's.
+
+    ``seg`` must be non-decreasing and non-negative (gaps allowed: an empty
+    id gets lo == hi, the end of the last occupied id before it); rows to
+    exclude carry an id >= num_segments, sorted to the end."""
+    ids = torch.arange(num_segments, dtype=seg.dtype, device=seg.device)
+    seg = seg.contiguous()
+    return (torch.searchsorted(seg, ids, right=False),
+            torch.searchsorted(seg, ids, right=True))

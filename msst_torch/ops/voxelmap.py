@@ -18,13 +18,11 @@ from typing import NamedTuple
 import torch
 
 from . import linalg, segments
-from .numeric import mul_i32
+from .numeric import hash3 as _hash3
 
 Tensor = torch.Tensor
 
-_P1, _P2, _P3 = 73856093, 19349663, 83492791
 _BIG = 2**30
-_INT32_MIN = -2**31
 
 # Thin surf cells reclassified as LINE features ship their direction scaled
 # by LINE_DIR_SCALE; consumers detect them via |direction| < LINE_DIR_GATE.
@@ -66,16 +64,6 @@ class VoxelFeatureMap(NamedTuple):
     @property
     def table_size(self) -> int:
         return self.bucket_start.shape[0]
-
-
-def _hash3(c: Tensor, table_size: int) -> Tensor:
-    """``abs(c0*P1 ^ c1*P2 ^ c2*P3) % table_size`` with msst_tpu's int32
-    semantics: the multiplies wrap, abs(INT32_MIN) stays INT32_MIN, and the
-    modulo is a floor-mod (non-negative)."""
-    h = (mul_i32(c[..., 0], _P1) ^ mul_i32(c[..., 1], _P2)
-         ^ mul_i32(c[..., 2], _P3)).to(torch.int64)
-    h = torch.where(h == _INT32_MIN, h, torch.abs(h))
-    return torch.remainder(h, table_size).to(torch.int32)
 
 
 def _coord_key(c: Tensor) -> Tensor:

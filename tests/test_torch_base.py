@@ -299,9 +299,19 @@ def test_msst_torch_imports_no_jax():
         "import msst_torch\n"
         "for m in pkgutil.walk_packages(msst_torch.__path__, 'msst_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'msst_torch.ops.knn' in sys.modules\n"
+        "import torch\n"
+        "from msst_torch.models.liosam import params, state\n"
+        "from msst_torch.ops import knn\n"
+        # the knn path's own code runs without jax too: a knn-mode state
+        # and one query of its (empty) surf grid
+        "st = state.init_state(params.tiny_params(scan2map_method='knn'),\n"
+        "                      'cpu')\n"
+        "res = knn.query(st.local_map.surf_grid, torch.zeros(4, 3),\n"
+        "                torch.ones(4, dtype=torch.bool))\n"
+        "assert res.idx.shape == (4, 5) and not bool(res.valid.any())\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(k.startswith('msst_tpu') for k in sys.modules)\n"
-        "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
         "assert torch.get_float32_matmul_precision() == 'highest'\n"

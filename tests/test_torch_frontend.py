@@ -49,7 +49,7 @@ def scans():
     data = sim.make_dataset(sim.World(), sim.SimTrajectory(kind="circle"),
                             n_scans=3, scan_dt=0.1, n_scan=16, horizon=360,
                             seed=3)
-    packer = TLioSam(ttiny(loop_closure_enabled=False))
+    packer = TLioSam(ttiny(loop_closure_enabled=False), device="cpu")
     out = []
     for s in data:
         out.append(packer._make_input_np(
