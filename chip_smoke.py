@@ -8,26 +8,40 @@ Phases, one line each; any failure exits non-zero:
 1. the card: nvidia-smi name and power limit, torch's device name
    (no CUDA device -> exit 1).
 2. build the CUDA kernels from msst_torch/csrc with nvcc, one nvcc per
-   source, all started together.
+   source, all started together (the drives' scans are simulated in two
+   worker processes meanwhile).
 3. each kernel against its plain PyTorch twin on the card, bit for bit, at
-   the shapes the odometry step gives it, on maps built from the simulated
-   drive (the k-NN query also on a small case with a 64-bucket table and 4
-   candidates a bucket: collisions, overflow, masked queries, short rows);
-   then each kernel's time beside its twin's, its time for one query (the
-   launch floor), its time on the device alone (torch.profiler) and the
-   least time the card could take for the same bytes and operations.
+   the shapes its path gives it: B1 and B2 (3a, 3b) on maps built from the
+   simulated drive (the k-NN query also on a small case with a 64-bucket
+   table and 4 candidates a bucket: collisions, overflow, masked queries,
+   short rows); B3, the row gather (3c), at pallas_bench's shapes and at
+   every gather the loop makes from the keyframe store (256 and 1024
+   keyframes), and on clamped indices with the scalar path; then each
+   kernel's time beside its twin's, its time for one query (B1, B2: the
+   launch floor), its time on the device alone (torch.profiler), the least
+   time the card could take for the same bytes and operations (B3: each
+   distinct row read once), and for B3 the time of ``torch.index_select``.
 4. the main paths: ``LioSam(params, device="cuda").process_scan`` over the
    256-scan 16x1800 bench drive (circle r=10 m at 2 m/s, seed 7, loop
    closure off, max_keyframes=256), once with scan2map_method="voxel"
-   (4a) and once with "knn" (4b).  Each drive's kernel launch counter is
-   set to 0 just before it and read just after; the accuracy gates of
-   bench.py (drift <= 0.5 %/m, final error <= 0.10 m); scans/s and
-   per-scan p50/p99.
+   (4a) and once with "knn" (4b); over bench.py's loop-on drive (340
+   scans, seed 8, loop closure on, 4c), which must close a loop.  Each
+   drive's kernel launch counters are set to 0 just before it and read
+   just after; the accuracy gates of bench.py (drift <= 0.5 %/m, final
+   error <= 0.10 m); scans/s and per-scan p50/p99 (a loop attempt counts
+   in the scan that dispatched it).  4d: the dense and the CG pose-graph
+   solvers on bench.py's 512- and 1024-pose ring graphs, ms per
+   Gauss-Newton iteration and their agreement.  4e: ``LioParams`` with its
+   own defaults at 16x1800 (1024 keyframes, so the CG solver) over the
+   loop-on drive, under the same gates, closing a loop, and solving by CG
+   in ``_insert_keyframe`` and in each closing attempt.
 5. the port on the CPU and on the card over the first scans of each path
    (24 voxel, 12 knn): the CPU drive within 1 cm of the mean of five
    drives on the card (one drive on the card is a noisy sample: its
    scatter-adds add in no fixed order); each drive's gap and the drives'
-   spread are printed.
+   spread are printed.  Then one loop attempt from 4c's final state, on
+   the card and on a CPU copy: the same outcome and candidate, keyframe
+   poses within 1 cm.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  --out DIR also writes the per-scan
@@ -38,11 +52,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -50,6 +65,7 @@ DRIFT_GATE_PCT = 0.5
 FINAL_GATE_M = 0.10
 CPU_AGREE_M = 0.01
 N_SCANS = 256          # the bench drive
+N_LOOP_SCANS = 340     # bench.py's loop-on drive: 34 s, past the 30 s age gate
 N_CPU_SCANS = {"voxel": 24, "knn": 12}
 N_CARD_DRIVES = 5      # drives on the card that phase 5 averages
 # the card's published peaks (H100 SXM data sheet): device memory rate and
@@ -63,6 +79,20 @@ PEAK_F32_OPS_PER_S = 67e12
 BOOT_SCANS = 64
 SCAN_DT = 0.1
 N_SCAN, HORIZON = 16, 1800
+# B3's inputs: scripts/pallas_bench.py's two shapes with random rows; then
+# each gather the loop makes from the keyframe store, at bench-loop's
+# max_keyframes (256) and at the default (1024): pose6 (6 floats a row) and
+# the corner and surf clouds, by the newest keyframe (N = 1), the pair
+# (newest, candidate) (N = 2, pose6 only) and the history window of 2 x 25 +
+# 1 rows around the candidate, clamped to the store as the loop clamps it.
+# The rows are those of bench-loop's closures: 60 keyframes, candidates 0-3.
+GATHER_BENCH = [(131072, 24, 81920), (2048, 24, 10240)]
+GATHER_LOOP_K = (256, 1024)
+LOOP_CUR, LOOP_CAND = 59, 2
+GATHER_TIMED = "loop surf K=256 window"   # the case of the kernels line
+RING_SIZES = (512, 1024)
+RING_ITERS = 9
+RING_AGREE_M = 2e-2    # tests/test_graph.py:137 holds CG to dense so
 
 
 def _card() -> str:
@@ -73,13 +103,24 @@ def _card() -> str:
     return out.strip().splitlines()[0]
 
 
-def _params(method):
+def _params(method, loop=False):
     from msst_torch.models.liosam.params import LioParams
 
     return LioParams(n_scan=N_SCAN, horizon_scan=HORIZON,
                      max_points=N_SCAN * HORIZON + 64,
-                     loop_closure_enabled=False, max_keyframes=256,
+                     loop_closure_enabled=loop, max_keyframes=256,
                      scan2map_method=method)
+
+
+def _simulate(n_scans, seed):
+    """The bench drive's scans (runs in a worker process)."""
+    from msst_torch.utils import sim
+
+    return sim.make_dataset(sim.World(),
+                            sim.SimTrajectory(kind="circle", radius=10.0,
+                                              speed=2.0),
+                            n_scans=n_scans, scan_dt=SCAN_DT, n_scan=N_SCAN,
+                            horizon=HORIZON, seed=seed)
 
 
 def _feed(lio, s):
@@ -377,6 +418,104 @@ def phase_knn_query(feats, queries, p):
             "corner_ms": c_ms, "surf_ms": s_ms}
 
 
+def _gather_cases(gen):
+    """(label, H, W, idx) of every B3 case of phase 3c but the clamped one."""
+    p = _params("voxel", loop=True)
+    cases = [("pallas_bench", H, W, gen.integers(0, H, N))
+             for H, W, N in GATHER_BENCH]
+    n = p.history_keyframe_search_num
+    for K in GATHER_LOOP_K:
+        window = np.clip(np.arange(LOOP_CAND - n, LOOP_CAND + n + 1), 0, K - 1)
+        for table, W in (("pose6", 6), ("corner", 3 * p.kf_corner_cap),
+                         ("surf", 3 * p.kf_surf_cap)):
+            rows = {"newest": [LOOP_CUR], "window": window}
+            if table == "pose6":
+                rows["pair"] = [LOOP_CUR, LOOP_CAND]
+            for what, idx in rows.items():
+                cases.append((f"loop {table} K={K} {what}", K, W,
+                              np.asarray(idx)))
+    return cases
+
+
+def phase_gather_rows(dev):
+    """Phase 3c, kernel B3: gather_rows against gather_rows_plain on the
+    card, bit for bit, on pallas_bench's shapes and every gather the loop
+    makes from the keyframe store (``_gather_cases``), and on a table whose
+    rows are neither a multiple of 4 floats nor 16-byte aligned (the scalar
+    path) with indices below 0 and at or above H (clamped).  Each case's
+    time with the wrapper, on the device alone, the twin's, and
+    ``torch.index_select`` of the clamped indices (one library call); its
+    bound counts each distinct row read once."""
+    import torch
+
+    from msst_torch.ops import gather
+
+    gen = np.random.default_rng(11)
+
+    def check(label, table, idx):
+        got = gather.gather_rows(table, idx)
+        want = gather.gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"gather_rows ({label}): not bit-equal to "
+                                 "the twin")
+        return float((got - want).abs().max()) if got.numel() else 0.0
+
+    cases, err = [], 0.0
+    for label, H, W, rows in _gather_cases(gen):
+        table = torch.from_numpy(
+            gen.standard_normal((H, W), dtype=np.float32)).to(dev)
+        idx = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        N = idx.shape[0]
+        err = max(err, check(f"{label} {H}x{W}", table, idx))
+        ms, plain_ms = _kernel_and_plain_ms(
+            lambda: gather.gather_rows(table, idx),
+            lambda: gather.gather_rows_plain(table, idx))
+        library_ms = _cuda_ms(
+            lambda: torch.index_select(table, 0, idx.clamp(0, H - 1)))
+        device_ms = _device_ms(lambda: gather.gather_rows(table, idx),
+                               "gather_rows_kernel")
+        # each distinct row read once, each output float written once, each
+        # index read once
+        distinct = int(idx.clamp(0, H - 1).unique().numel())
+        n_bytes = distinct * W * 4 + N * W * 4 + N * 4
+        bound_ms, bound_by = _bound(n_bytes, 0)
+        cases.append({"case": label, "H": H, "W": W, "N": N,
+                      "distinct_rows": distinct, "ms": ms,
+                      "device_ms": device_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bytes": n_bytes})
+        print(f"phase 3c: gather_rows == twin on ({H}, {W}) x {N} rows, "
+              f"{distinct} distinct ({label}); kernel {ms:.4f} ms, on the "
+              f"device alone {_fmt_ms(device_ms)}, plain {plain_ms:.4f} ms, "
+              f"index_select {library_ms:.4f} ms per call (CUDA events, 100 "
+              f"calls); bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} B)",
+              flush=True)
+        del table
+    # the scalar path (130 floats a row, a 4-byte offset) on clamped indices
+    H, W = 300, 130
+    flat = torch.from_numpy(gen.normal(size=H * W + 1).astype(np.float32)).to(dev)
+    table = flat[1:].view(H, W)
+    idx = torch.from_numpy(gen.integers(-50, H + 50, 400).astype(np.int32)).to(dev)
+    idx[:4] = torch.tensor([-1, -2**31, H, 2**31 - 1], dtype=torch.int32)
+    clamped_err = check("clamped, scalar path", table, idx)
+    err = max(err, clamped_err)
+    print(f"phase 3c: gather_rows == twin on ({H}, {W}) x 400 rows at a "
+          f"4-byte offset, {int((idx < 0).sum())} indices below 0 and "
+          f"{int((idx >= H).sum())} at or above H; max_abs_err "
+          f"{clamped_err}; over all {len(cases) + 1} cases {err}", flush=True)
+    timed = next(c for c in cases if c["case"] == GATHER_TIMED)
+    return {"name": "gather_rows", "route": "cuda",
+            "source": "msst_torch/csrc/gather_rows.cu",
+            "replaces": "msst_tpu/ops/gather_pallas.py:59",
+            "max_abs_err": err, "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "library_ms": timed["library_ms"],
+            "device_ms": timed["device_ms"],
+            "timed_case": f"{GATHER_TIMED}: ({timed['H']}, {timed['W']}) x "
+                          f"{timed['N']}", "cases": cases}
+
+
 def _accuracy(traj, data):
     """(max_err, final_err, drift_pct_per_m, path_len) against ground truth
     (bench.py's definition)."""
@@ -451,6 +590,211 @@ def phase_main_path(tag, method, kernel, data, card):
             f"{DRIFT_GATE_PCT}), final err {final_err:.4f} m (<= "
             f"{FINAL_GATE_M})")
     return res
+
+
+def _loop_drive(tag, what, params, data, card, solvers=False):
+    """One loop-on drive of ``LioSam(params, device="cuda")`` over `data`:
+    the kernel launch counters are set to 0 just before it and read just
+    after; every loop attempt is timed to the end of its device work, with
+    its launches (and with `solvers`, its calls of the dense and the CG
+    pose-graph solver) counted apart (profile_drive.watched_attempts).
+    The drive must pass bench.py's gates and close at least one loop, and
+    its attempts must launch B1 and B3."""
+    import torch
+
+    from msst_torch.models.liosam import LioSam
+    from msst_torch.ops import gather, graph, knn, voxelmap
+    from msst_torch.utils.profile_drive import counted_calls, watched_attempts
+
+    kernels = {"voxel_lookup_cat": voxelmap.lookup_cat,
+               "knn_query": knn.query, "gather_rows": gather.gather_rows}
+    targets = [(graph, "optimize"), (graph, "optimize_cg")] if solvers else []
+    attempts = []
+    lio = LioSam(params, device="cuda", boot_scans=BOOT_SCANS)
+    with counted_calls(targets) as calls:
+        counters = {name: (lambda fn=fn: fn.launches)
+                    for name, fn in kernels.items()}
+        counters.update({name: (lambda name=name: calls[name])
+                         for name in calls})
+        with watched_attempts(attempts, counters):
+            for fn in kernels.values():
+                fn.launches = 0
+            step_ms = []
+            for s in data:
+                t0 = time.perf_counter()
+                _feed(lio, s).pose_matrix.cpu()
+                step_ms.append(1000.0 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            launched = {name: fn.launches for name, fn in kernels.items()}
+    max_err, final_err, drift, path_len = _accuracy(lio.trajectory, data)
+    steady = np.asarray(step_ms[BOOT_SCANS + 1:])
+    in_loop = {name: sum(a["counts"][name] for a in attempts)
+               for name in counters}
+    with_cand = [a for a in attempts if a["tried"]]
+    att_ms = np.asarray([a["ms"] for a in with_cand]) if with_cand else None
+    loops = int(lio.state.n_loop)
+    res = {
+        "scans": len(data), "launched": launched, "in_attempts": in_loop,
+        "calls": dict(calls), "attempts": attempts, "loops_closed": loops,
+        "scans_per_s": len(steady) / (steady.sum() / 1000.0),
+        "p50_ms": float(np.percentile(steady, 50)),
+        "p99_ms": float(np.percentile(steady, 99)),
+        "max_err_m": max_err, "final_err_m": final_err,
+        "drift_pct_per_m": drift, "path_len_m": path_len,
+        "keyframes": int(lio.state.kf.count), "step_ms": step_ms,
+        "attempt_p50_ms": float(np.percentile(att_ms, 50)) if with_cand else None,
+        "attempt_max_ms": float(att_ms.max()) if with_cand else None,
+    }
+    solved = ""
+    if solvers:
+        res["solver_calls_outside_attempts"] = {
+            name: calls[name] - in_loop[name] for name in calls}
+        solved = (f"; pose-graph solves in attempts {{dense "
+                  f"{in_loop['graph.optimize']}, CG "
+                  f"{in_loop['graph.optimize_cg']}}}, outside them (in "
+                  f"_insert_keyframe) {res['solver_calls_outside_attempts']}")
+    print(f"phase {tag}: LioSam cuda, {what}, over {len(data)} scans x "
+          f"{N_SCAN}x{HORIZON} (seed 8): {len(attempts)} attempts "
+          f"dispatched, {len(with_cand)} with a candidate, {loops} loops "
+          f"closed; per attempt with a candidate p50 "
+          f"{_fmt_ms(res['attempt_p50_ms'])} max "
+          f"{_fmt_ms(res['attempt_max_ms'])}; launches in attempts: B1 "
+          f"{in_loop['voxel_lookup_cat']}, B3 {in_loop['gather_rows']}, B2 "
+          f"{in_loop['knn_query']} (drive {launched}){solved}; "
+          f"{res['keyframes']} keyframes; max err {max_err:.4f} m, final err "
+          f"{final_err:.4f} m, drift {drift:.4f} %/m over {path_len:.1f} m; "
+          f"{res['scans_per_s']:.2f} scans/s, per-scan p50 "
+          f"{res['p50_ms']:.2f} ms p99 {res['p99_ms']:.2f} ms (W=1, pose on "
+          f"host, scans {BOOT_SCANS + 1}+) [{card}]", flush=True)
+    for a in attempts:
+        print(f"        attempt: {a}", flush=True)
+    if drift > DRIFT_GATE_PCT or final_err > FINAL_GATE_M:
+        raise AssertionError(
+            f"accuracy gate ({what}): drift {drift:.4f} %/m (<= "
+            f"{DRIFT_GATE_PCT}), final err {final_err:.4f} m (<= "
+            f"{FINAL_GATE_M})")
+    if loops < 1:
+        raise AssertionError(f"the drive ({what}) closed no loop")
+    if in_loop["gather_rows"] == 0 or in_loop["voxel_lookup_cat"] == 0:
+        raise AssertionError(f"the loop attempts launched {in_loop}")
+    return res, lio.state
+
+
+def phase_loop_path(data, card):
+    """Phase 4c: the loop-on main path on the card, bench.py's loop phase
+    (bench-voxel's configuration with loop closure on: an attempt every 10
+    scans behind the host pre-gate, the dense solver at 256 keyframes)."""
+    return _loop_drive("4c", "loop closure on", _params("voxel", loop=True),
+                       data, card)
+
+
+def phase_defaults_path(data, card):
+    """Phase 4e: ``LioSam(LioParams(...))`` with the package's own defaults
+    but the sensor's size (16 x 1800), so 1024 keyframes and the CG solver,
+    over the loop-on drive: the CG solver must run in _insert_keyframe and
+    in a closing attempt's re-solve, and the dense one never."""
+    from msst_torch.models.liosam.params import LioParams
+
+    p = LioParams(n_scan=N_SCAN, horizon_scan=HORIZON,
+                  max_points=N_SCAN * HORIZON + 64)
+    res, _ = _loop_drive(
+        "4e", f"LioParams defaults (max_keyframes {p.max_keyframes}, "
+        f"cg_threshold {p.cg_threshold}, loop closure "
+        f"{p.loop_closure_enabled})", p, data, card, solvers=True)
+    outside = res["solver_calls_outside_attempts"]
+    closing = [a for a in res["attempts"] if a["found"]]
+    if (res["calls"]["graph.optimize"] or outside["graph.optimize_cg"] == 0
+            or not all(a["counts"]["graph.optimize_cg"] for a in closing)):
+        raise AssertionError(
+            f"the defaults' drive did not solve by CG alone: {res['calls']}, "
+            f"outside attempts {outside}")
+    return res
+
+
+def phase_graph_solvers(card):
+    """Phase 4d: the dense and the CG pose-graph solvers on bench.py's ring
+    graphs at RING_SIZES poses, on the card: ms per Gauss-Newton iteration
+    as bench.py takes it ((wall of RING_ITERS - wall of 1) / (RING_ITERS -
+    1), each the best of two), and the largest gap between their poses
+    after RING_ITERS iterations."""
+    import torch
+
+    from msst_torch.ops import graph
+    from msst_torch.utils.ring_graph import make_ring_graph
+
+    res = {}
+    for K in RING_SIZES:
+        g = make_ring_graph(K, device="cuda")
+
+        def ms_per_iter(solve):
+            def wall(iters):
+                best = float("inf")
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = solve(g, iters=iters)
+                    torch.cuda.synchronize()
+                    best = min(best, time.perf_counter() - t0)
+                return best, out
+
+            w1, _ = wall(1)
+            wk, out = wall(RING_ITERS)
+            return 1000.0 * (wk - w1) / (RING_ITERS - 1), out
+
+        dense_ms, dense = ms_per_iter(graph.optimize)
+        cg_ms, cg = ms_per_iter(graph.optimize_cg)
+        gap = float((dense.poses.t - cg.poses.t).abs().max())
+        rot = float(1.0 - (dense.poses.q * cg.poses.q).sum(-1).abs().min())
+        res[K] = {"dense_ms_per_iter": dense_ms, "cg_ms_per_iter": cg_ms,
+                  "gap_m": gap, "rot_gap_1_minus_dot": rot}
+        print(f"phase 4d: ring graph of {K} poses on the card: dense "
+              f"{dense_ms:.3f} ms, CG {cg_ms:.3f} ms per GN iteration; after "
+              f"{RING_ITERS} iterations the poses differ by at most "
+              f"{gap:.6f} m (limit {RING_AGREE_M}), 1 - |q.q| {rot:.2e} "
+              f"[{card}]", flush=True)
+        if not gap <= RING_AGREE_M:
+            raise AssertionError(f"dense and CG differ by {gap} m at K={K}")
+    return res
+
+
+def phase_cpu_loop(state, card):
+    """Phase 5, loop closure: one forced attempt from the loop drive's final
+    state on the card and on a CPU copy of that state: the same outcome,
+    the same candidate where found, keyframe poses within CPU_AGREE_M."""
+    import torch
+
+    from msst_torch import convert
+    from msst_torch.models.liosam import loop
+
+    p = _params("voxel", loop=True)
+    cpu_state = convert.from_numpy(convert.to_numpy(state), "cpu")
+    t0 = time.perf_counter()
+    card_new, card_res = loop.loop_closure_step(state, p)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_new, cpu_res = loop.loop_closure_step(cpu_state, p)
+    cpu_s = time.perf_counter() - t0
+    a, b = convert.to_numpy(card_res), convert.to_numpy(cpu_res)
+    n = int(cpu_new.kf.count)
+    gap = float(np.abs(card_new.kf.pose6[:n].cpu().numpy()
+                       - cpu_new.kf.pose6[:n].numpy()).max())
+    print(f"phase 5: one loop attempt from the loop drive's final state: "
+          f"cuda found={bool(a.found)} cur={int(a.cur)} cand={int(a.cand)} "
+          f"fitness={float(a.fitness):.6f} icp_iters={int(a.icp_iters)} "
+          f"({card_s:.2f} s); cpu found={bool(b.found)} cur={int(b.cur)} "
+          f"cand={int(b.cand)} fitness={float(b.fitness):.6f} "
+          f"icp_iters={int(b.icp_iters)} ({cpu_s:.2f} s); largest keyframe "
+          f"pose gap {gap:.6f} (limit {CPU_AGREE_M}) over {n} keyframes "
+          f"[{card}]", flush=True)
+    if bool(a.found) != bool(b.found) or int(a.cur) != int(b.cur) or (
+            bool(a.found) and int(a.cand) != int(b.cand)):
+        raise AssertionError("the loop attempt differs between cpu and cuda")
+    if not gap <= CPU_AGREE_M:
+        raise AssertionError(f"loop attempt keyframe poses differ by {gap}")
+    return {"found": bool(a.found), "cand": int(a.cand),
+            "fitness_cuda": float(a.fitness), "fitness_cpu": float(b.fitness),
+            "pose_gap": gap, "cuda_s": card_s, "cpu_s": cpu_s}
 
 
 def phase_cpu(method, data):
@@ -528,46 +872,57 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = _card()
     print(f"phase 1: nvidia-smi '{card}'; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    t0 = time.perf_counter()
-    build_s = _build_kernels(["voxel_lookup", "knn_query"])
-    print("phase 2: built with nvcc, in parallel: "
-          + ", ".join(f"{k} {v:.2f} s" if v else f"{k} (already built)"
-                      for k, v in build_s.items())
-          + f"; {time.perf_counter() - t0:.2f} s in all", flush=True)
-
-    from msst_torch.utils import sim
-
-    t0 = time.perf_counter()
-    data = sim.make_dataset(sim.World(),
-                            sim.SimTrajectory(kind="circle", radius=10.0,
-                                              speed=2.0),
-                            n_scans=N_SCANS, scan_dt=SCAN_DT,
-                            n_scan=N_SCAN, horizon=HORIZON, seed=7)
-    print(f"        simulated {N_SCANS} scans in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # both drives' scans are simulated in worker processes (spawned: this
+    # process holds a CUDA context) while the kernels build; the pool ends
+    # before anything is timed
+    t_sim = time.perf_counter()
+    with ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        bench_job = pool.submit(_simulate, N_SCANS, 7)
+        loop_job = pool.submit(_simulate, N_LOOP_SCANS, 8)
+        t0 = time.perf_counter()
+        build_s = _build_kernels(["voxel_lookup", "knn_query", "gather_rows"])
+        print("phase 2: built with nvcc, in parallel: "
+              + ", ".join(f"{k} {v:.2f} s" if v else f"{k} (already built)"
+                          for k, v in build_s.items())
+              + f"; {time.perf_counter() - t0:.2f} s in all", flush=True)
+        data, loop_data = bench_job.result(), loop_job.result()
+    print(f"        simulated {N_SCANS} + {N_LOOP_SCANS} scans in "
+          f"{time.perf_counter() - t_sim:.1f} s", flush=True)
     p = _params("knn")   # both methods share every size the kernels see
     feats, queries = _step_features(data, p, torch.device("cuda"))
     b1 = phase_voxel_lookup(feats, queries, p)
     b2 = phase_knn_query(feats, queries, p)
     del feats, queries
-    res = {"card": card, "build_s": build_s, "kernels": [b1, b2]}
-    res["voxel"] = phase_main_path("4a", "voxel", "voxel_lookup_cat", data, card)
+    b3 = phase_gather_rows(torch.device("cuda"))
+    res = {"card": card, "build_s": build_s, "kernels": [b1, b2, b3]}
+    res["voxel"] = phase_main_path("4a", "voxel", "voxel_lookup_cat", data,
+                                   card)
     res["knn"] = phase_main_path("4b", "knn", "knn_query", data, card)
+    res["loop"], loop_state = phase_loop_path(loop_data, card)
+    res["graph"] = phase_graph_solvers(card)
+    res["defaults"] = phase_defaults_path(loop_data, card)
+    del loop_data
     b1["launches"] = res["voxel"]["launches"]
     b2["launches"] = res["knn"]["launches"]
+    b3["launches"] = res["loop"]["launched"]["gather_rows"]
     for method in ("voxel", "knn"):
         res[method].update(phase_cpu(method, data))
+    res["loop"].update(phase_cpu_loop(loop_state, card))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(res, f, indent=1)
 
-    print(json.dumps({"kernels": [b1, b2]}))
+    print(f"done: every phase passed, {time.perf_counter() - t_start:.1f} s "
+          "in all", flush=True)
+    print(json.dumps({"kernels": [b1, b2, b3]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 ``from_numpy(tree, device)`` takes a msst_tpu NamedTuple whose leaves were
 turned into numpy arrays (``jax.tree.map(np.asarray, x)``) and builds the
-port's NamedTuple of the same name and fields, with tensors on `device`;
+port's NamedTuple of the same name and fields, with tensors on `device`
+(a field only the port has, ``LoopResult.tried``, keeps its default);
 ``to_numpy(obj)`` turns the port's tensors back into numpy arrays.  Dtypes
 are kept (bool stays bool, int32 stays int32).  Every leaf is carried,
 the knn hash grids of ``LocalMap`` included, so a state of either
@@ -14,14 +15,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.liosam import imu_fusion, state
-from .ops import graph, imu, knn, se3, voxelmap
+from .models.liosam import imu_fusion, loop, state
+from .ops import graph, imu, knn, registration, se3, voxelmap
 
 _TYPES = {cls.__name__: cls for cls in (
     voxelmap.VoxelFeatureMap, voxelmap.VoxelMoments, knn.HashGrid,
     graph.PoseGraph, graph.PriorFactor, graph.BetweenFactor, graph.GpsFactor,
     se3.Pose, imu_fusion.FilterState, imu.NavState, imu.ImuBias,
     state.LioState, state.KeyframeStore, state.LocalMap,
+    loop.LoopResult, registration.IcpResult,
 )}
 
 
@@ -30,11 +32,17 @@ def _is_namedtuple(x) -> bool:
 
 
 def from_numpy(tree, device):
-    """msst_tpu NamedTuple of numpy arrays -> the port's NamedTuple."""
+    """msst_tpu NamedTuple of numpy arrays -> the port's NamedTuple (None
+    stays None, so ``from_numpy(to_numpy(x), device)`` copies a state of
+    the port to another device)."""
+    if tree is None:
+        return None
     if _is_namedtuple(tree):
         cls = _TYPES[type(tree).__name__]
+        # a field of the port's own (it has a default) that msst_tpu lacks
+        # takes its default
         return cls(**{f: from_numpy(getattr(tree, f), device)
-                      for f in cls._fields})
+                      for f in cls._fields if hasattr(tree, f)})
     return torch.from_numpy(np.array(tree)).to(device)
 
 

@@ -47,6 +47,12 @@ _SIGNATURES = {
              _C.c_void_p, _C.c_int, _C.c_int, _C.c_float,
              _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
     },
+    "gather_rows": {
+        "gather_rows": (
+            _C.c_int,
+            [_C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p, _C.c_int,
+             _C.c_void_p, _C.c_int, _C.c_void_p]),
+    },
 }
 
 _loaded: dict = {}

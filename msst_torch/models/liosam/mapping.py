@@ -14,7 +14,7 @@ single-scan path; the reference's ``mapOptmization`` per-scan pipeline,
 msst_tpu compiles this into one program with ``lax.cond`` branches; here the
 branches are Python ``if``s on flags read back from the device.  Paths the
 port does not take yet raise ``NotImplementedError`` (keyframe eviction at
-capacity, the CG graph solver; see also ``state.require_ported``).
+capacity; see also ``state.require_ported``).
 """
 
 from __future__ import annotations
@@ -312,13 +312,11 @@ def _map_telemetry(lm: LocalMap, p: LioParams) -> tuple[Tensor, Tensor]:
 
 
 def _graph_optimize(graph, p: LioParams, free_mask=None, iters=2):
-    """The dense solve; the CG solver msst_tpu picks beyond cg_threshold
-    keyframes is not ported yet."""
+    """Dense or matrix-free CG solve, chosen from the capacity as msst_tpu
+    chooses (the dense 6Kx6K Cholesky stops fitting around 1k keyframes)."""
     if p.graph_solver == "cg" or (p.graph_solver == "auto"
                                   and p.max_keyframes > p.cg_threshold):
-        raise NotImplementedError(
-            "the CG pose-graph solver is not ported yet (ROADMAP item L3): "
-            f"use graph_solver='dense' or max_keyframes <= {p.cg_threshold}")
+        return graph_ops.optimize_cg(graph, free_mask=free_mask, iters=iters)
     return graph_ops.optimize(graph, free_mask=free_mask, iters=iters)
 
 

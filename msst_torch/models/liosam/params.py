@@ -3,7 +3,7 @@
 
 Mirrors the reference's ``config/params.yaml`` (``include/utility.h:63-250``).
 Some fields only steer paths of msst_tpu that the port does not take yet
-(windowed uploads, Pallas routing, loop closure); they stay so
+(windowed uploads, Pallas routing); they stay so
 that one parameter object describes both packages.  Paths the port does not
 take raise ``NotImplementedError`` where they are selected.
 """
@@ -103,7 +103,7 @@ class LioParams:
     vox_corner_cap: int = 8192
     vox_surf_cap: int = 16384
 
-    # --- loop closure (params.yaml:88-96) — not ported yet
+    # --- loop closure (params.yaml:88-96)
     loop_closure_enabled: bool = True
     loop_closure_frequency: float = 1.0
     surrounding_keyframe_size: int = 50
@@ -126,8 +126,8 @@ class LioParams:
 
     # --- static capacity caps
     max_keyframes: int = 1024
-    # pose-graph solver: "dense" (ported) | "cg" (not yet) | "auto" (dense up
-    # to cg_threshold keyframes, CG beyond)
+    # pose-graph solver: "dense" | "cg" | "auto" (dense up to cg_threshold
+    # keyframes, CG beyond)
     graph_solver: str = "auto"
     cg_threshold: int = 512
     kf_corner_cap: int = 2048        # stored downsampled corners per keyframe

@@ -1,10 +1,11 @@
 """Host-side orchestration of the LIO-SAM pipeline (port of
 ``msst_tpu.models.liosam.pipeline.LioSam`` at window=1): pad raw sensor
 arrays to the static shapes, thread the state through the odometry step on
-the chosen device, and collect the trajectory.
+the chosen device, run the loop-closure program at its own lower rate, and
+collect the trajectory.
 
 Not ported yet, and refused where selected: windowed dispatch (window > 1,
-ROADMAP item L4) and loop closure (ROADMAP item L5)."""
+ROADMAP item L4)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...ops import se3
+from .loop import loop_closure_step
 from .mapping import odometry_step_packed
 from .params import LioParams
 from .state import LioState, init_state
@@ -53,10 +56,11 @@ class LioSam:
             raise NotImplementedError(
                 f"window={window}: windowed dispatch is not ported yet "
                 "(ROADMAP item L4); use window=1")
-        if self.p.loop_closure_enabled:
-            raise NotImplementedError(
-                "loop closure is not ported yet (ROADMAP item L5); pass "
-                "loop_closure_enabled=False")
+        # loop closure: one attempt every `_loop_every` scans (assuming
+        # ~10 Hz scans), after the step of the scan that reaches it
+        self.loop_enabled = self.p.loop_closure_enabled
+        self._loop_every = max(
+            1, int(round(1.0 / max(self.p.loop_closure_frequency, 1e-3) * 10)))
         # dynamic init: the first scan is deskewed with an unknown velocity,
         # so its smeared cloud anchors the map ~v*sweep/2 off the start
         # pose.  Buffer the first `boot_scans` scans, read back the
@@ -74,6 +78,11 @@ class LioSam:
         # (absolute epoch stamps would collapse every dt in float32)
         self._epoch: Optional[float] = None
         self._pending: list = []  # (time, pose_matrix, occupancy, dropped)
+        self._pending_loops: list = []  # device `found` flags, read lazily
+        # a closed loop rewrote keyframe history: the recorded trajectory is
+        # stale until the next resync, which the consumers (trajectory,
+        # flush) run; the loop pre-gate's radius margin absorbs the stale tail
+        self._resync_needed = False
         # capped-structure health: running max of the local-map occupancy
         # and the cumulative overflow-dropped cell count
         self.map_health = {"max_occupancy": 0.0, "dropped_cells": 0}
@@ -179,6 +188,8 @@ class LioSam:
 
         if len(self._pending) >= _READBACK_INTERVAL:
             self._flush_pending()
+        if self.loop_enabled and self._scan_count % self._loop_every == 0:
+            self._try_loop_closure()
         return out
 
     def _bootstrap_refeed(self):
@@ -189,6 +200,8 @@ class LioSam:
 
         scans = self._boot_scans
         self._boot_scans = None  # the re-feed must not re-trigger
+        self._pending_loops.clear()
+        self._resync_needed = False
         fs = self.state.filter
         q = fs.nav.q.double().cpu().numpy()   # wxyz
         v = fs.nav.v.double().cpu().numpy()
@@ -211,9 +224,53 @@ class LioSam:
                                     s["scan_start"], **kw)
         return out
 
+    def _try_loop_closure(self):
+        """One loop-closure attempt, unless the host pre-gate rules it out.
+        Its `found` flag is read at the next flush, where a closed loop
+        marks the trajectory for a resync."""
+        if not self._loop_plausible():
+            return
+        self.state, loop = loop_closure_step(self.state, self.p)
+        self._pending_loops.append(loop.found)
+
+    def _loop_plausible(self) -> bool:
+        """Host-side pre-gate: skip the attempt where the candidate search
+        (``detectLoopClosureDistance`` :610-643) provably finds nothing.
+
+        * age, exact: keyframe times are a subset of the scan times, so a
+          session younger than the age gate has no eligible candidate;
+        * radius: the flushed trajectory holds the keyframe positions; if
+          no pose old enough lies within the radius plus a margin for the
+          unflushed travel (2x the recent speed over the readback lag, +1 m)
+          of the latest known pose, none can on the device.  At worst a
+          detection moves to the next attempt.  Unknown positions (nothing
+          flushed yet) dispatch."""
+        p, t_cur = self.p, self._last_scan_time
+        if t_cur is None or self._epoch is None:
+            return True
+        if (t_cur - self._epoch) <= p.history_keyframe_search_time_diff:
+            return False
+        times = self._trajectory.times
+        if not times:
+            return True
+        t = np.asarray(times, np.float64)
+        old = (t_cur - t) > p.history_keyframe_search_time_diff
+        if not old.any():
+            return True
+        pos = np.asarray([m[:3, 3] for m in self._trajectory.poses])
+        dt_tail = max(t[-1] - t[max(len(t) - 8, 0)], 1e-3)
+        v = float(np.linalg.norm(pos[-1] - pos[max(len(t) - 8, 0)])) / dt_tail
+        margin = 2.0 * v * max(t_cur - t[-1], 0.0) + 1.0
+        d = np.linalg.norm(pos[old] - pos[-1], axis=1)
+        return bool((d < p.history_keyframe_search_radius + margin).any())
+
     def _flush_pending(self):
-        """Fetch the pending poses and map telemetry in one copy each, then
-        check for divergence (reinitialize on a non-finite pose)."""
+        """Fetch the pending poses, map telemetry and loop flags in one copy
+        each, then check for divergence (reinitialize on a non-finite
+        pose)."""
+        loops, self._pending_loops = self._pending_loops, []
+        if loops and bool(torch.stack(loops).any()):
+            self._resync_needed = True
         if not self._pending:
             return
         pending, self._pending = self._pending, []
@@ -227,6 +284,7 @@ class LioSam:
             self.state = init_state(self.p, self.device)
             self._last_scan_time = None
             self._init_vel = None  # a stale bootstrap hint must not re-apply
+            self._resync_needed = False  # a fresh store: nothing to resync
             for t, m in zip(times, mats):  # keep the finite prefix
                 if np.isfinite(m).all():
                     self._trajectory.times.append(t)
@@ -234,6 +292,31 @@ class LioSam:
             return
         self._trajectory.times.extend(times)
         self._trajectory.poses.extend(list(mats))
+
+    def _resync_trajectory(self):
+        """Rewrite the recorded poses of the keyframe scans from the
+        optimized keyframe store (copied to the host once)."""
+        self._resync_needed = False
+        kf = self.state.kf
+        n = int(kf.count)
+        if n == 0 or not self._trajectory.times:
+            return
+        mats = se3.Pose.from_vec6(kf.pose6[:n].cpu()).to_matrix().numpy()
+        # keyframe times are float32 offsets from the epoch, trajectory times
+        # absolute float64: match the nearest within half a 10 Hz period
+        times = kf.time[:n].cpu().numpy().astype(np.float64) + (
+            self._epoch or 0.0)
+        traj_t = np.asarray(self._trajectory.times, np.float64)
+        order = np.argsort(traj_t, kind="stable")
+        sorted_t = traj_t[order]
+        hi = np.searchsorted(sorted_t, times)
+        for t, m, j in zip(times, mats, hi):
+            best, best_dt = -1, 0.02
+            for k in (j - 1, j):
+                if 0 <= k < len(sorted_t) and abs(sorted_t[k] - t) < best_dt:
+                    best, best_dt = int(order[k]), abs(sorted_t[k] - t)
+            if best >= 0:
+                self._trajectory.poses[best] = m
 
     def _update_map_health(self, occ, drop):
         """Fold flushed telemetry into map_health; warn once on saturation
@@ -253,9 +336,12 @@ class LioSam:
     @property
     def trajectory(self) -> Trajectory:
         """Host trajectory (drains pending device results first)."""
-        self._flush_pending()
+        self.flush()
         return self._trajectory
 
     def flush(self):
-        """Drain pending device results into the host trajectory."""
+        """Drain pending device results into the host trajectory, and
+        resync it after a closed loop."""
         self._flush_pending()
+        if self._resync_needed:
+            self._resync_trajectory()

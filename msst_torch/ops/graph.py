@@ -1,11 +1,11 @@
-"""Fixed-capacity pose graph and its dense Gauss-Newton solve (port of
+"""Fixed-capacity pose graph and its Gauss-Newton solves (port of
 ``msst_tpu.ops.graph``; the GTSAM iSAM2 backend of
 ``mapOptmization.cpp:1381-1581``: prior, between and GPS factors).
 
 Residuals are whitened per factor and their 6-dof Jacobians are taken by
 forward-mode autodiff of the retraction (``torch.func.jacfwd``), as
-msst_tpu takes them with ``jax.jacfwd``.  The matrix-free CG solver is not
-ported yet (ROADMAP item L3).
+msst_tpu takes them with ``jax.jacfwd``.  Two solvers: the dense Cholesky
+:func:`optimize` and the matrix-free preconditioned CG :func:`optimize_cg`.
 """
 
 from __future__ import annotations
@@ -199,4 +199,84 @@ def optimize(graph: PoseGraph, free_mask: Optional[Tensor] = None,
         dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
         dx = (dx * diag_mask).reshape(K, 6)
         graph = graph._replace(poses=se3.pose_retract(graph.poses, dx))
+    return graph
+
+
+def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
+                iters: int = 5, cg_iters: int = 50,
+                damping: float = 1e-4) -> PoseGraph:
+    """Gauss-Newton with a matrix-free preconditioned-CG inner solve.
+
+    The normal-equation matvec is taken factor by factor (two batched
+    einsums and ``index_add_`` scatters per factor table) without forming
+    H, so memory is O(K*36), not the dense solve's O(K^2*36): the solver
+    for graphs beyond ``cg_threshold`` keyframes.  Block-Jacobi (6x6
+    diagonal blocks) preconditioning and a fixed `cg_iters` count, so
+    nothing is read back to the host.  On the card the scatters add in no
+    fixed order."""
+    if free_mask is None:
+        free_mask = graph.pose_mask
+    K = graph.capacity
+    dev = graph.pose_mask.device
+    pf, bf, gf = graph.priors, graph.betweens, graph.gps
+    pi, bi, bj, gi = (pf.idx.long(), bf.i.long(), bf.j.long(),
+                      gf.idx.long())
+    free = (free_mask & graph.pose_mask).to(torch.float32)
+    eye6 = torch.eye(6, device=dev)
+
+    def scatter(idx, vals, shape):
+        return torch.zeros(shape, device=dev).index_add_(0, idx, vals)
+
+    for _ in range(iters):
+        rp, Jp = _prior_terms(graph.poses, pf)
+        rb, Ji, Jj = _between_terms(graph.poses, bf)
+        rg, Jg = _gps_terms(graph.poses, gf)
+        Jp = Jp * free[pi][:, None, None]
+        Ji = Ji * free[bi][:, None, None]
+        Jj = Jj * free[bj][:, None, None]
+        Jg = Jg * free[gi][:, None, None]
+
+        def matvec(x):                      # x: (K, 6)
+            v = torch.einsum("nri,ni->nr", Jp, x[pi])
+            y = scatter(pi, torch.einsum("nri,nr->ni", Jp, v), (K, 6))
+            # betweens, cross blocks included
+            v = (torch.einsum("nri,ni->nr", Ji, x[bi])
+                 + torch.einsum("nri,ni->nr", Jj, x[bj]))
+            y.index_add_(0, bi, torch.einsum("nri,nr->ni", Ji, v))
+            y.index_add_(0, bj, torch.einsum("nri,nr->ni", Jj, v))
+            v = torch.einsum("nri,ni->nr", Jg, x[gi])
+            y.index_add_(0, gi, torch.einsum("nri,nr->ni", Jg, v))
+            return y + damping * x
+
+        g = scatter(pi, torch.einsum("nri,nr->ni", Jp, rp), (K, 6))
+        g.index_add_(0, bi, torch.einsum("nri,nr->ni", Ji, rb))
+        g.index_add_(0, bj, torch.einsum("nri,nr->ni", Jj, rb))
+        g.index_add_(0, gi, torch.einsum("nri,nr->ni", Jg, rg))
+
+        # block-Jacobi preconditioner
+        D = scatter(pi, torch.einsum("nri,nrj->nij", Jp, Jp), (K, 6, 6))
+        D.index_add_(0, bi, torch.einsum("nri,nrj->nij", Ji, Ji))
+        D.index_add_(0, bj, torch.einsum("nri,nrj->nij", Jj, Jj))
+        D.index_add_(0, gi, torch.einsum("nri,nrj->nij", Jg, Jg))
+        Dinv = torch.linalg.inv(D + (damping + 1e-6) * eye6)
+
+        def precond(x):
+            return torch.einsum("nij,nj->ni", Dinv, x)
+
+        x = torch.zeros((K, 6), device=dev)
+        r = -g
+        z = precond(r)
+        pdir = z
+        rz = torch.sum(r * z)
+        for _ in range(cg_iters):
+            Ap = matvec(pdir)
+            alpha = rz / torch.clamp(torch.sum(pdir * Ap), min=1e-12)
+            x = x + alpha * pdir
+            r = r - alpha * Ap
+            z = precond(r)
+            rz_new = torch.sum(r * z)
+            pdir = z + rz_new / torch.clamp(rz, min=1e-12) * pdir
+            rz = rz_new
+        graph = graph._replace(
+            poses=se3.pose_retract(graph.poses, x * free[:, None]))
     return graph

@@ -12,6 +12,8 @@ one cell size of the query.
 :func:`query` is the hot op of the knn scan-to-map path.  On a CUDA tensor
 it runs as the hand-written kernel ``msst_torch/csrc/knn_query.cu``, on a
 CPU tensor as its plain PyTorch twin :func:`query_plain`.
+:func:`nearest1_brute`, the exact 1-NN of the loop-closure ICP, is a
+chunked dense sweep.
 """
 
 from __future__ import annotations
@@ -212,6 +214,39 @@ def query(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
 
 
 query.launches = 0
+
+
+def nearest1_brute(tgt_xyz: Tensor, tgt_mask: Tensor, q_xyz: Tensor,
+                   q_mask: Tensor, chunk: int = 8192) -> KnnResult:
+    """Exact 1-NN by a chunked dense distance sweep (msst_tpu's
+    ``knn.nearest1_brute``; the loop-closure ICP's correspondence search,
+    ``pcl::KdTreeFLANN`` in ``mapOptmization.cpp:560-580``).
+
+    Each (Q, <= chunk) block of the target is ``|q|^2 - 2 q.x + |x|^2``
+    (the product a full-f32 matmul), folded into a running minimum; the
+    last block is the target's remainder.  Only one block is alive at a
+    time: at the loop's shapes (10240 queries) one is 335 MB.  The first
+    minimum wins within a block, an earlier chunk on equal distances."""
+    Q = q_xyz.shape[0]
+    dev = q_xyz.device
+    q_sq = torch.sum(q_xyz * q_xyz, dim=1)
+    best_d2 = torch.full((Q,), torch.inf, device=dev)
+    best_i = torch.zeros(Q, dtype=torch.int32, device=dev)
+    rows = torch.arange(Q, device=dev)
+    for b in range(0, tgt_xyz.shape[0], chunk):
+        x, m = tgt_xyz[b:b + chunk], tgt_mask[b:b + chunk]
+        # written in msst_tpu's order: (|q|^2 - 2 q.x) + |x|^2
+        d2 = torch.mm(q_xyz, x.T).mul_(-2.0).add_(q_sq[:, None])
+        d2.add_(torch.sum(x * x, dim=1)[None, :])
+        d2.masked_fill_(~m[None, :], torch.inf)
+        i = torch.argmin(d2, dim=1)
+        d2c = d2[rows, i]
+        del d2
+        upd = d2c < best_d2
+        best_d2 = torch.where(upd, d2c, best_d2)
+        best_i = torch.where(upd, i.to(torch.int32) + b, best_i)
+    d2 = torch.clamp(torch.where(q_mask, best_d2, torch.inf), min=0.0)
+    return KnnResult(best_i[:, None], d2[:, None], torch.isfinite(d2)[:, None])
 
 
 def radius_count(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, radius: float,

@@ -1,7 +1,7 @@
 """Small batched linear algebra (port of ``msst_tpu.ops.linalg``): the
 closed-form symmetric 3x3 eigendecomposition the voxel-feature fit runs over
-every map cell, and the damped Cholesky solve of the 6x6 Gauss-Newton
-normal equations."""
+every map cell, the damped Cholesky solve of the 6x6 Gauss-Newton normal
+equations, and the weighted Kabsch fit of the ICP update."""
 
 from __future__ import annotations
 
@@ -106,3 +106,22 @@ def solve_psd(A: Tensor, b: Tensor, damping: float = 0.0) -> Tensor:
     A = A + damping * torch.eye(n, dtype=A.dtype, device=A.device)
     L, _ = torch.linalg.cholesky_ex(A)
     return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+
+def weighted_kabsch(src: Tensor, dst: Tensor, w: Tensor
+                    ) -> tuple[Tensor, Tensor]:
+    """Best-fit rigid transform (R, t) minimizing sum w |R src + t - dst|^2
+    (src, dst (N, 3), w (N,) non-negative): the weighted 3x3
+    cross-covariance in full f32 (TF32 is off package-wide, the counterpart
+    of msst_tpu's HIGHEST precision: TF32 noise here jitters the ICP update
+    above its 1e-6 transform epsilon), its SVD, and the det sign
+    correction."""
+    wsum = torch.clamp(torch.sum(w), min=1e-9)
+    mu_s = torch.sum(src * w[:, None], dim=0) / wsum
+    mu_d = torch.sum(dst * w[:, None], dim=0) / wsum
+    H = ((src - mu_s) * w[:, None]).T @ (dst - mu_d)
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+    D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+    R = Vt.T @ D @ U.T
+    return R, mu_d - R @ mu_s

@@ -3,16 +3,19 @@
 ``scan2MapOptimization`` + ``LMOptimization``, ``mapOptmization.cpp:974-1310``):
 against voxel feature maps (one structured lookup an iteration), and the
 reference-faithful form against 5-NN correspondences in the corner and surf
-map hash grids.
+map hash grids.  And the loop closure's point-to-point ICP
+(``icp_point2point_brute``) with its per-axis cost curvature
+(``icp_curvature_brute``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from . import knn, linalg, voxelmap
+from . import knn, linalg, se3, voxelmap
 
 Tensor = torch.Tensor
 
@@ -293,3 +296,148 @@ def scan_to_map(
     return ScanToMapResult(pose, degenerate, done,
                            torch.tensor(it, dtype=torch.int32, device=dev),
                            nc, ns)
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point ICP (loop closure)
+# ---------------------------------------------------------------------------
+
+
+class IcpResult(NamedTuple):
+    pose: se3.Pose      # source -> target
+    fitness: Tensor     # mean sq distance of matched points (PCL getFitnessScore)
+    matched_frac: Tensor
+    converged: Tensor
+    iters: Tensor       # () int32 iterations run
+
+
+def icp_point2point_brute(
+    src_xyz: Tensor, src_mask: Tensor,
+    tgt_xyz: Tensor, tgt_mask: Tensor,
+    init_pose: se3.Pose,
+    max_iters: int = 100,
+    max_corr_dist: float = 2.0,
+    fitness_max_dist: float = math.inf,
+    transformation_eps: float = 1e-6,
+    rel_mse_eps: float = 1e-5,
+    abs_mse_eps: float = 1e-12,
+    chunk: int = 8192,
+) -> IcpResult:
+    """SVD-based rigid ICP with pcl::IterativeClosestPoint semantics
+    (msst_tpu's ``icp_point2point_brute``): each iteration exact 1-NN
+    correspondences within `max_corr_dist` by the dense sweep
+    (:func:`knn.nearest1_brute`), a weighted Kabsch update, and PCL's
+    DefaultConvergenceCriteria as the stop: the iteration cap, transform
+    similarity (update translation^2 < `transformation_eps` and rotation
+    cos(angle) > 1 - `transformation_eps`), the correspondence MSE below
+    `abs_mse_eps` or changed by less than `rel_mse_eps` of its previous
+    value, or no matches.  `converged` is PCL's ``hasConverged()``:
+    correspondences existed (the cap is a valid stop); fitness is the
+    caller's gate, as in ``performLoopClosure`` (mapOptmization.cpp:575-580).
+
+    The loop runs on the host and reads one stop flag back from the device
+    each iteration, like :func:`scan_to_map_voxel`."""
+
+    def nn1(moved, max_sq):
+        res = knn.nearest1_brute(tgt_xyz, tgt_mask, moved, src_mask,
+                                 chunk=chunk)
+        return res._replace(valid=res.valid & (res.sqdist <= max_sq))
+
+    return _icp_run(src_xyz, src_mask, nn1, tgt_xyz, init_pose, max_iters,
+                    max_corr_dist, fitness_max_dist, transformation_eps,
+                    rel_mse_eps, abs_mse_eps)
+
+
+def _icp_run(src_xyz, src_mask, nn1, tgt_xyz, init_pose, max_iters,
+             max_corr_dist, fitness_max_dist, transformation_eps,
+             rel_mse_eps, abs_mse_eps) -> IcpResult:
+    dev = src_xyz.device
+    pose = init_pose
+    mse = torch.full((), torch.inf, device=dev)
+    it = 0
+    while True:
+        moved = pose.apply(src_xyz)
+        res = nn1(moved, max_corr_dist * max_corr_dist)
+        ok = res.valid[:, 0] & src_mask
+        w = ok.to(src_xyz.dtype)
+        nmatch = torch.sum(w)
+        prev_mse = mse
+        mse = torch.sum(torch.where(ok, res.sqdist[:, 0], 0.0)) / torch.clamp(
+            nmatch, min=1.0)
+        dst = tgt_xyz[res.idx[:, 0].long()]
+        R, t = linalg.weighted_kabsch(moved, dst, w)
+        pose = se3.Pose(se3.matrix_to_quat(R), t).compose(pose)
+        it += 1
+        # PCL's update magnitude: translation^2 and rotation cos(angle)
+        similar = (torch.sum(t * t) < transformation_eps) & (
+            0.5 * (torch.trace(R) - 1.0) > 1.0 - transformation_eps)
+        mse_stop = (mse < abs_mse_eps) | (
+            torch.abs(prev_mse - mse) < rel_mse_eps * prev_mse)
+        if it >= max_iters or bool(similar | mse_stop | (nmatch <= 0)):
+            break
+
+    moved = pose.apply(src_xyz)
+    res = nn1(moved, min(fitness_max_dist ** 2, 1e18))
+    ok = res.valid[:, 0] & src_mask
+    n_ok = torch.sum(ok.to(torch.int32))
+    nm = torch.clamp(n_ok, min=1)
+    fitness = torch.sum(torch.where(ok, res.sqdist[:, 0], 0.0)) / nm
+    frac = nm / torch.clamp(torch.sum(src_mask.to(torch.int32)), min=1)
+    return IcpResult(pose, fitness, frac, n_ok > 0,
+                     torch.tensor(it, dtype=torch.int32, device=dev))
+
+
+def icp_curvature_brute(
+    src_xyz: Tensor, src_mask: Tensor,
+    tgt_xyz: Tensor, tgt_mask: Tensor,
+    pose: se3.Pose,
+    max_corr_dist: float = 2.0,
+    delta_t: float = 1.5,
+    delta_r: float = 0.1,
+    chunk: int = 8192,
+) -> tuple[Tensor, Tensor]:
+    """Per-axis curvature of the ICP cost around a converged `pose`
+    (msst_tpu's ``icp_curvature_brute``): ``(kappa, c0)`` with kappa (6,) =
+    [rot x,y,z, trans x,y,z] central second differences of the mean squared
+    NN distance, each probe re-associating its correspondences, so that a
+    corridor match sliding along its axis reads near zero there.
+
+    Rotation probes are conjugated about the moved cloud's centroid
+    (``x' = R_dq (x - c) + c``), so kappa does not depend on the scene's
+    distance from the origin.  A probe that loses every correspondence
+    costs the saturated ``max_corr_dist**2``, not 0.  The 13 sweeps run one
+    after another, one sweep's memory at a time."""
+    max_sq = max_corr_dist * max_corr_dist
+    dev = src_xyz.device
+
+    def cost(p):
+        res = knn.nearest1_brute(tgt_xyz, tgt_mask, p.apply(src_xyz),
+                                 src_mask, chunk=chunk)
+        ok = res.valid[:, 0] & src_mask & (res.sqdist[:, 0] <= max_sq)
+        n_ok = torch.sum(ok.to(torch.int32))
+        mean = torch.sum(torch.where(ok, res.sqdist[:, 0], 0.0)) / torch.clamp(
+            n_ok, min=1)
+        return torch.where(n_ok == 0, max_sq, mean)
+
+    c0 = cost(pose)
+    w = src_mask.to(src_xyz.dtype)
+    center = (torch.sum(pose.apply(src_xyz) * w[:, None], dim=0)
+              / torch.clamp(torch.sum(w), min=1.0))
+    zero3 = torch.zeros(3, device=dev)
+
+    def perturb(i, sign):
+        rot = i < 3
+        e = torch.zeros(3, device=dev)
+        e[i % 3] = sign * (delta_r if rot else delta_t)
+        dq = se3.so3_exp_quat(e if rot else zero3)
+        c = center if rot else zero3
+        return se3.Pose(se3.quat_mul(dq, pose.q),
+                        se3.quat_rotate(dq, pose.t - c) + c
+                        + (zero3 if rot else e))
+
+    kappa = []
+    for i in range(6):
+        d = delta_r if i < 3 else delta_t
+        kappa.append((cost(perturb(i, 1.0)) + cost(perturb(i, -1.0))
+                       - 2.0 * c0) / (d * d))
+    return torch.stack(kappa), c0

@@ -104,6 +104,40 @@ def quat_to_matrix(q: Tensor) -> Tensor:
     return R.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(R: Tensor) -> Tensor:
+    """Shepperd's method, branch-free: all four decodes, the one with the
+    largest pivot kept (on equal pivots the first, as msst_tpu)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def mk(w, x, y, z):
+        return torch.stack([w, x, y, z], dim=-1)
+
+    def root(a):
+        return torch.sqrt(torch.clamp(a, min=1e-12)) * 2.0
+
+    s0 = root(1.0 + tr)
+    q0 = mk(0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0)
+    s1 = root(1.0 + m00 - m11 - m22)
+    q1 = mk((m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1)
+    s2 = root(1.0 - m00 + m11 - m22)
+    q2 = mk((m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2)
+    s3 = root(1.0 - m00 - m11 + m22)
+    q3 = mk((m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3)
+
+    c0 = tr
+    c1 = m00 - m11 - m22
+    c2 = m11 - m00 - m22
+    c3 = m22 - m00 - m11
+    cmax = torch.maximum(torch.maximum(c0, c1), torch.maximum(c2, c3))
+    q = torch.where((c0 == cmax)[..., None], q0,
+                    torch.where((c1 == cmax)[..., None], q1,
+                                torch.where((c2 == cmax)[..., None], q2, q3)))
+    return quat_normalize(q)
+
+
 def quat_from_rpy(rpy: Tensor) -> Tensor:
     r, p, y = rpy[..., 0] * 0.5, rpy[..., 1] * 0.5, rpy[..., 2] * 0.5
     cr, sr = torch.cos(r), torch.sin(r)

@@ -71,6 +71,7 @@ from msst_torch import convert
 from msst_torch.models.liosam import LioSam as TLioSam
 from msst_torch.models.liosam import mapping as tmap
 from msst_torch.models.liosam import state as tstate
+from msst_torch.models.liosam.params import LioParams
 from msst_torch.models.liosam.params import tiny_params as ttiny
 from msst_torch.ops import knn as tknn
 from msst_torch.ops import registration as treg
@@ -80,6 +81,17 @@ from msst_tpu.models.liosam.params import tiny_params as jtiny
 from msst_tpu.ops import knn as jknn
 from msst_tpu.ops import registration as jreg
 from msst_tpu.utils import sim
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's ops here are small and many: with the suite's parallel
+    workers, each torch intra-op pool of one thread per core oversubscribes
+    the CPU and slows every worker.  One thread while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N_SCANS = 20
 DRIVE_GAP_M = 0.08
@@ -479,9 +491,6 @@ _UNPORTED = {
     "rebuild": dict(params=dict(map_update="rebuild")),
     "exact_features": dict(params=dict(feature_method="exact"), scans=1),
     "window": dict(window=4),
-    "loop_closure": dict(params=dict(loop_closure_enabled=True)),
-    "cg_solver": dict(params=dict(graph_solver="cg", pose_cov_threshold=0.0),
-                      scans=1, gps=True),
     "eviction": dict(params=dict(max_keyframes=2), scans=12),
 }
 
@@ -500,12 +509,26 @@ def test_unported_paths_raise(case):
                                 n_scans=spec.get("scans", 0), scan_dt=0.5,
                                 n_scan=16, horizon=360, seed=1)
         for s in data:
-            extra = dict(gps_xyz=s["gt_pose"][:3, 3],
-                         gps_sigma=np.full(3, 0.1)) if spec.get("gps") else {}
             lio.process_scan(s["xyz"], s["ring"], s["time_rel"],
                              s["scan_start"], imu_t=s["imu_t"],
                              imu_gyro=s["imu_gyro"], imu_acc=s["imu_acc"],
-                             imu_rpy=s["imu_rpy"], **extra)
+                             imu_rpy=s["imu_rpy"])
+
+
+def test_default_params_construct_and_step():
+    """``LioSam(LioParams())`` runs with the package's own defaults (loop
+    closure on, 1024 keyframes, so the CG graph solver): two 16x1800 scans
+    on the CPU give finite poses."""
+    lio = TLioSam(LioParams(), device="cpu")
+    assert lio.loop_enabled and lio.p.max_keyframes > lio.p.cg_threshold
+    data = sim.make_dataset(sim.World(), sim.SimTrajectory(kind="circle"),
+                            n_scans=2, scan_dt=0.1, n_scan=16, horizon=1800,
+                            seed=1)
+    for s in data:
+        out = _feed(lio, s)
+    assert int(out.kf_count) >= 1
+    traj = lio.trajectory.as_matrices()
+    assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()
 
 
 def test_default_device_is_the_card():
