@@ -9,23 +9,35 @@ Phases, one line each; any failure exits non-zero:
    (no CUDA device -> exit 1).
 2. build the CUDA kernels from msst_torch/csrc with nvcc, one nvcc per
    source, all started together (the drives' scans are simulated in two
-   worker processes meanwhile).
+   worker processes meanwhile); each kernel's registers and spills as
+   ``nvcc -Xptxas -v`` reports them.
 3. each kernel against its plain PyTorch twin on the card, bit for bit, at
-   the shapes its path gives it: B1 and B2 (3a, 3b) on maps built from the
-   simulated drive (the k-NN query also on a small case with a 64-bucket
-   table and 4 candidates a bucket: collisions, overflow, masked queries,
-   short rows); B3, the row gather (3c), at pallas_bench's shapes and at
-   every gather the loop makes from the keyframe store (256 and 1024
-   keyframes), and on clamped indices with the scalar path; then each
-   kernel's time beside its twin's, its time for one query (B1, B2: the
-   launch floor), its time on the device alone (torch.profiler), the least
-   time the card could take for the same bytes and operations (B3: each
-   distinct row read once), and for B3 the time of ``torch.index_select``.
+   the shapes its path gives it: B1 (3a) on the step's corner and surf
+   voxel maps, and on two maps built for ties (voxel means at cell centres,
+   queries at cell corners: up to 8 equidistant candidates across octants;
+   masked queries; n_a splitting a warp); B2 (3b) as one ``query_cat`` of
+   the step's corner and surf map clouds (the one launch of a Gauss-Newton
+   iteration), equal to two ``query`` calls too, on a small case with a
+   64-bucket table and 4 candidates a bucket (collisions, overflow, masked
+   queries, short rows; k = 1, 5, 16), on a lattice whose candidates tie
+   across probes out of point-index order (k = 5, 16), and on the two in
+   one ``query_cat`` with n_a = 333; B3, the row gather (3c), at
+   pallas_bench's shapes and at every gather the loop makes from the
+   keyframe store (256 and 1024 keyframes), and on clamped indices with the
+   scalar path.  Then each kernel's time beside its twin's, the host's
+   microseconds per call (1000 calls without a sync), its time for one
+   query (B1, B2: the launch floor), its time on the device alone
+   (torch.profiler), the least time the card
+   could take for the same bytes and operations (each distinct probe row,
+   bucket entry, point and row read once: msst_torch/utils/kernel_work.py
+   for B1 and B2), and for B3 the time of ``torch.index_select``.
 4. the main paths: ``LioSam(params, device="cuda").process_scan`` over the
    256-scan 16x1800 bench drive (circle r=10 m at 2 m/s, seed 7, loop
    closure off, max_keyframes=256), once with scan2map_method="voxel"
-   (4a) and once with "knn" (4b); over bench.py's loop-on drive (340
-   scans, seed 8, loop closure on, 4c), which must close a loop.  Each
+   (4a) and once with "knn" (4b, one B2 launch per Gauss-Newton
+   iteration, checked against the iterations run); over bench.py's
+   loop-on drive (340 scans, seed 8, loop closure on, 4c), which must
+   close a loop.  Each
    drive's kernel launch counters are set to 0 just before it and read
    just after; the accuracy gates of bench.py (drift <= 0.5 %/m, final
    error <= 0.10 m); scans/s and per-scan p50/p99 (a loop attempt counts
@@ -174,10 +186,6 @@ def _device_ms(fn, kernel, n=20):
     return total_us / 1000.0 / n if total_us else None
 
 
-def _nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def _fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -227,12 +235,101 @@ def _step_features(data, p, dev):
     return feats, (q, torch.cat([cm, sm]), cq.shape[0])
 
 
-def phase_voxel_lookup(feats, queries, p):
-    """Phase 3, kernel B1: voxel_lookup_cat against its twin on the card, on
-    a corner and a surf voxel-feature map at the step's capacities."""
+def _host_us(fn, n=1000):
+    """Host microseconds per call of `fn` over n calls without a sync: what
+    the wrapper costs the caller's thread."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+# queries in the cell (INT32_MIN, 0, 0) of a 1 m grid at the origin: its
+# hash is INT32_MIN itself (the multiplier of x is odd), the one value whose
+# abs() stays negative, and its neighbours' x coordinates wrap
+_EXTREME_Q = np.array([[-2.0 ** 31, 0.5, 0.5], [-2.0 ** 31, 0.25, 0.75]],
+                      np.float32)
+
+
+def _lookup_equal(label, vmap_a, vmap_b, q, qm, n_a):
+    """voxelmap.lookup_cat (the kernel) against lookup_cat_plain on the card:
+    idx and found everywhere, mean, direction and d where found, bit for
+    bit.  Returns (result, max_abs_err)."""
     import torch
 
     from msst_torch.ops import voxelmap
+
+    got = voxelmap.lookup_cat(vmap_a, vmap_b, q, qm, n_a)
+    want = voxelmap.lookup_cat_plain(vmap_a, vmap_b, q, qm, n_a)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.idx, want.idx) and torch.equal(got.found, want.found)):
+        raise AssertionError(
+            f"voxel_lookup_cat ({label}): idx/found differ from the twin in "
+            f"{int((got.idx != want.idx).sum())}/"
+            f"{int((got.found != want.found).sum())} of {q.shape[0]} queries")
+    f = want.found
+    err = 0.0
+    for name in ("mean", "direction", "d"):
+        x, y = getattr(got, name)[f], getattr(want, name)[f]
+        if not torch.equal(x, y):
+            raise AssertionError(f"voxel_lookup_cat ({label}): {name} not "
+                                 "bit-equal to the twin where found")
+        err = max(err, float((x - y).abs().max()) if x.numel() else 0.0)
+    return got, err
+
+
+def _tie_voxel_maps(dev):
+    """Two voxel-feature maps whose voxel means sit exactly at their cell
+    centres (4 points at +-1/4 leaf about each centre: a plane map at leaf
+    1 m and a line map at leaf 0.5 m off the origin), ~30 % of the cells
+    left empty; and queries at cell corners and edge midpoints, so that up
+    to 8 candidate means across octants are equidistant.  ~10 % of the
+    queries are masked, and n_a = 701 splits a warp's four queries."""
+    import torch
+
+    from msst_torch.ops import voxelmap
+
+    gen = np.random.default_rng(5)
+    maps, queries = [], []
+    for kind, leaf, origin, n_q in (("plane", 1.0, (0.0, 0.0, 0.0), 701),
+                                    ("line", 0.5, (0.25, -0.5, 0.0), 400)):
+        o = np.asarray(origin, np.float32)
+        cells = np.stack(np.meshgrid(*[np.arange(-4, 4)] * 3, indexing="ij"),
+                         -1).reshape(-1, 3)
+        cells = cells[gen.random(len(cells)) < 0.7]
+        off = (np.array([[1, 1, 0], [1, -1, 0], [-1, 1, 0], [-1, -1, 0]])
+               if kind == "plane" else
+               np.array([[2, 0, 0], [-2, 0, 0], [1, 0, 0], [-1, 0, 0]]))
+        off = off.astype(np.float32) * (0.25 if kind == "plane" else 0.125)
+        centre = o + (cells + 0.5) * leaf
+        pts = (centre[:, None] + off[None] * leaf).reshape(-1, 3)
+        maps.append(voxelmap.build(
+            torch.from_numpy(pts.astype(np.float32)).to(dev),
+            torch.ones(len(pts), dtype=torch.bool, device=dev), leaf, 512,
+            kind, table_size=1024, origin=torch.from_numpy(o).to(dev)))
+        corner = gen.integers(-3, 4, (n_q, 3)).astype(np.float32)
+        corner[n_q // 2:, 0] += 0.5                 # edge midpoints
+        queries.append(o + corner * leaf)
+    queries[0][:2] = _EXTREME_Q   # the cell (INT32_MIN, 0, 0) and its hash
+    q = torch.from_numpy(np.concatenate(queries).astype(np.float32)).to(dev)
+    qm = torch.from_numpy(gen.random(q.shape[0]) > 0.1).to(dev)
+    return maps, q, qm, 701
+
+
+def phase_voxel_lookup(feats, queries, p):
+    """Phase 3, kernel B1: voxel_lookup_cat against its twin on the card, on
+    a corner and a surf voxel-feature map at the step's capacities, and on
+    two maps built for ties (``_tie_voxel_maps``)."""
+    import torch
+
+    from msst_torch.ops import voxelmap
+    from msst_torch.utils.kernel_work import voxel_lookup_work
 
     q, qm, n_a = queries
     anchor = torch.zeros(3, device=q.device)
@@ -245,59 +342,62 @@ def phase_voxel_lookup(feats, queries, p):
                           p.vox_surf_cap, "plane",
                           table_size=2 * p.vox_surf_cap, origin=anchor,
                           plane_min_spread=p.vox_plane_min_spread)
-    got = voxelmap.lookup_cat(cmap, smap, q, qm, n_a)
-    want = voxelmap.lookup_cat_plain(cmap, smap, q, qm, n_a)
-    torch.cuda.synchronize()
-    if not (torch.equal(got.idx, want.idx) and torch.equal(got.found, want.found)):
-        raise AssertionError(
-            "voxel_lookup_cat: idx/found differ from the twin in "
-            f"{int((got.idx != want.idx).sum())}/"
-            f"{int((got.found != want.found).sum())} of {q.shape[0]} queries")
-    f = want.found
-    err = 0.0
-    for name in ("mean", "direction", "d"):
-        a, b = getattr(got, name)[f], getattr(want, name)[f]
-        if not torch.equal(a, b):
-            raise AssertionError(f"voxel_lookup_cat: {name} not bit-equal "
-                                 "to the twin where found")
-        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+    got, err = _lookup_equal("the step's maps", cmap, smap, q, qm, n_a)
+    (ta, tb), tq, tqm, tn_a = _tie_voxel_maps(q.device)
+    tie, tie_err = _lookup_equal("ties", ta, tb, tq, tqm, tn_a)
+    octants = torch.unique(tie.idx[tie.found] // voxelmap.PROBE_C).numel()
+    if octants < 4 or bool(tie.found[~tqm].any()):
+        raise AssertionError(f"voxel_lookup_cat: the tie case's winners lie "
+                             f"on {octants} octants, or a masked query found")
+    err = max(err, tie_err)
+
+    def call():
+        voxelmap.lookup_cat(cmap, smap, q, qm, n_a)
+
     ms, plain_ms = _kernel_and_plain_ms(
-        lambda: voxelmap.lookup_cat(cmap, smap, q, qm, n_a),
-        lambda: voxelmap.lookup_cat_plain(cmap, smap, q, qm, n_a))
+        call, lambda: voxelmap.lookup_cat_plain(cmap, smap, q, qm, n_a))
     floor_ms = _cuda_ms(lambda: voxelmap.lookup_cat(cmap, smap, q[:1], qm[:1], 1))
-    device_ms = _device_ms(lambda: voxelmap.lookup_cat(cmap, smap, q, qm, n_a),
-                           "voxel_lookup_cat_kernel")
-    # every input read once and every output written once; a live query
-    # hashes 8 cells (~10 integer operations each) and measures 24
-    # candidates (3 subtractions, 3 products, 2 sums, 1 comparison)
-    n_bytes = _nbytes(q, qm, cmap.probe, smap.probe, cmap.leaf, cmap.origin,
-                      smap.leaf, smap.origin, *got)
-    n_ops = int(qm.sum()) * (8 * 10 + 24 * 9)
-    bound_ms, bound_by = _bound(n_bytes, n_ops)
-    print(f"phase 3: voxel_lookup_cat == twin on {q.shape[0]} queries "
-          f"({int(f.sum())} found; probe tables {cmap.table_size} + "
-          f"{smap.table_size} rows; max_abs_err {err}); kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms per call (CUDA events, 100 calls); one "
-          f"query {floor_ms:.4f} ms; on the device alone {_fmt_ms(device_ms)} "
-          f"(torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
-          f"({n_bytes} B, {n_ops} operations)", flush=True)
+    host_us = _host_us(call)
+    device_ms = _device_ms(call, "voxel_lookup_cat_kernel")
+    work = voxel_lookup_work(cmap, smap, q, qm, n_a)
+    bound_ms, bound_by = _bound(work["bytes"], work["ops"])
+    print(f"phase 3a: voxel_lookup_cat == twin on {q.shape[0]} queries "
+          f"({int(got.found.sum())} found; probe tables {cmap.table_size} + "
+          f"{smap.table_size} rows) and on {tq.shape[0]} tie queries "
+          f"({int(tie.found.sum())} found, winners on {octants} octants, "
+          f"{int((~tqm).sum())} masked, n_a={tn_a}); max_abs_err {err}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (CUDA "
+          f"events, 100 calls); host {host_us:.1f} us per call (1000 calls, "
+          f"no sync); one query {floor_ms:.4f} ms; on the device alone "
+          f"{_fmt_ms(device_ms)} (torch.profiler); bound {bound_ms:.6f} ms "
+          f"by {bound_by} ({work['bytes']} B: {work['rows']} distinct rows; "
+          f"{work['ops']} operations)", flush=True)
     return {"name": "voxel_lookup_cat", "route": "cuda",
             "source": "msst_torch/csrc/voxel_lookup.cu",
             "replaces": "msst_tpu/ops/voxelmap_pallas.py:115",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "floor_ms": floor_ms, "device_ms": device_ms}
+            "floor_ms": floor_ms, "device_ms": device_ms, "host_us": host_us,
+            "distinct_rows": work["rows"], "bytes": work["bytes"]}
 
 
-def _knn_equal(label, grid, q, qm, k, cand):
-    """knn.query (the kernel) against query_plain on the card: every slot of
-    idx, valid and sqdist bit-equal.  Returns (result, max_abs_err)."""
+def _knn_equal(label, grid_a, grid_b, q, qm, n_a, k, cand):
+    """knn.query_cat (the kernel) against query_cat_plain on the card: every
+    slot of idx, valid and sqdist bit-equal.  With grid_b None (and n_a
+    None), knn.query against query_plain on grid_a.  Returns (result,
+    max_abs_err)."""
     import torch
 
     from msst_torch.ops import knn
 
-    got = knn.query(grid, q, qm, k=k, candidates_per_cell=cand)
-    want = knn.query_plain(grid, q, qm, k=k, candidates_per_cell=cand)
+    if grid_b is None:
+        got = knn.query(grid_a, q, qm, k=k, candidates_per_cell=cand)
+        want = knn.query_plain(grid_a, q, qm, k=k, candidates_per_cell=cand)
+    else:
+        got = knn.query_cat(grid_a, grid_b, q, qm, n_a, k=k,
+                            candidates_per_cell=cand)
+        want = knn.query_cat_plain(grid_a, grid_b, q, qm, n_a, k=k,
+                                   candidates_per_cell=cand)
     torch.cuda.synchronize()
     for name in ("idx", "valid", "sqdist"):
         a, b = getattr(got, name), getattr(want, name)
@@ -305,7 +405,7 @@ def _knn_equal(label, grid, q, qm, k, cand):
             raise AssertionError(
                 f"knn_query ({label}): {name} differs from the twin in "
                 f"{int((a != b).sum())} of {a.numel()} slots")
-    n = grid.xyz.shape[0]
+    n = max(g.xyz.shape[0] for g in (grid_a, grid_b) if g is not None)
     if int(got.idx.min()) < 0 or int(got.idx.max()) >= n:
         raise AssertionError(f"knn_query ({label}): index outside [0, {n})")
     fin = torch.isfinite(want.sqdist)
@@ -313,35 +413,55 @@ def _knn_equal(label, grid, q, qm, k, cand):
     return got, err
 
 
-def _knn_work(grid, q, qm, k, cand):
-    """(bytes, operations) of one query call on these inputs: every input
-    read once and every output written once; a live query hashes 27 cells
-    (~10 integer operations each) and measures the candidates its buckets
-    really hold (3 subtractions, 3 products, 2 sums, 1 comparison each)."""
+def _lattice_grid(dev):
+    """Points on a 0.5 m lattice (16^3, 5 % masked) in a 1 m grid of 1024
+    buckets (8 points a cell, so C = 8 never overflows; 512 cells, so
+    buckets collide), and queries at lattice-symmetric positions: cell
+    corners + 0.75 (8 equidistant points in 8 cells), lattice points and
+    edge points; 10 % masked.  Many candidates across probes tie."""
     import torch
 
     from msst_torch.ops import knn
 
-    offsets = torch.tensor(knn._OFFSETS, dtype=torch.int32, device=q.device)
-    qc = torch.floor(q / grid.cell_size).to(torch.int32)
-    hb = knn._hash_coords(qc[:, None, :] + offsets[None], grid.table_size).long()
-    count = torch.clamp(grid.bucket_count[hb], max=cand)
-    earlier = torch.tril(torch.ones((27, 27), dtype=torch.bool,
-                                    device=q.device), diagonal=-1)
-    first = ~torch.any((hb[:, :, None] == hb[:, None, :]) & earlier[None], dim=2)
-    n_cand = int((count * first * qm[:, None]).sum())
-    n_bytes = _nbytes(q, qm, *grid) + q.shape[0] * k * (4 + 4 + 1)
-    return n_bytes, int(qm.sum()) * 27 * 10 + n_cand * 9, n_cand
+    gen = np.random.default_rng(6)
+    ax = np.arange(-8, 8) * 0.5
+    pts = np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts[gen.permutation(len(pts))].astype(np.float32)
+    mask = gen.random(len(pts)) > 0.05
+    grid = knn.build(torch.from_numpy(pts).to(dev),
+                     torch.from_numpy(mask).to(dev), 1.0, 1024)
+    base = gen.integers(-3, 3, (900, 3)).astype(np.float32)
+    q = np.concatenate([base[:300] + 0.75, base[300:600] * 0.5,
+                        base[600:] + np.array([0.25, 0.75, 0.5], np.float32)])
+    return (grid, torch.from_numpy(q.astype(np.float32)).to(dev),
+            torch.from_numpy(gen.random(len(q)) > 0.1).to(dev))
+
+
+def _ties_out_of_index_order(grid, res):
+    """Adjacent equal finite distances whose sorted point positions
+    descend: what a merge ordering ties by point index would get wrong."""
+    import torch
+
+    inv = torch.empty_like(grid.orig_idx, dtype=torch.long)
+    inv[grid.orig_idx.long()] = torch.arange(grid.xyz.shape[0],
+                                             device=inv.device)
+    pos, d = inv[res.idx.long()], res.sqdist
+    tie = (d[:, 1:] == d[:, :-1]) & torch.isfinite(d[:, 1:])
+    return int((tie & (pos[:, 1:] < pos[:, :-1])).sum())
 
 
 def phase_knn_query(feats, queries, p):
-    """Phase 3, kernel B2: knn_query against its twin on the card, on a
-    corner and a surf map cloud at the step's capacities (the two launches
-    of one Gauss-Newton iteration), and on a small colliding case."""
+    """Phase 3, kernel B2: knn.query_cat against its twin on the card, on a
+    corner and a surf map cloud at the step's capacities (the one launch of
+    a Gauss-Newton iteration), and equal to two knn.query calls; on a small
+    colliding case (k = 1, 5, 16), on a lattice whose candidates tie across
+    probes (k = 5, 16), and on the two in one query_cat with n_a not a
+    multiple of the lane group (16).  Then the times."""
     import torch
 
     from msst_torch.ops import knn, voxel
     from msst_torch.ops.pointcloud import Cloud
+    from msst_torch.utils.kernel_work import knn_query_work
 
     q, qm, n_a = queries
     dev = q.device
@@ -357,65 +477,93 @@ def phase_knn_query(feats, queries, p):
 
     cgrid, ccloud = grid_of(0, p.mapping_corner_leaf_size, p.map_corner_cap)
     sgrid, scloud = grid_of(2, p.mapping_surf_leaf_size, p.map_surf_cap)
+    res, err = _knn_equal("the step's maps", cgrid, sgrid, q, qm, n_a, 5, cand)
     cq, cqm = q[:n_a].contiguous(), qm[:n_a].contiguous()
     sq, sqm = q[n_a:].contiguous(), qm[n_a:].contiguous()
-    cres, cerr = _knn_equal("corners", cgrid, cq, cqm, 5, cand)
-    sres, serr = _knn_equal("surfs", sgrid, sq, sqm, 5, cand)
-    gated = int((cres.valid.all(dim=1) & (cres.sqdist[:, 4] < 1.0)).sum()
-                + (sres.valid.all(dim=1) & (sres.sqdist[:, 4] < 1.0)).sum())
+    cres = knn.query(cgrid, cq, cqm, k=5, candidates_per_cell=cand)
+    sres = knn.query(sgrid, sq, sqm, k=5, candidates_per_cell=cand)
+    for name in ("idx", "valid", "sqdist"):
+        two = torch.cat([getattr(cres, name), getattr(sres, name)])
+        if not torch.equal(getattr(res, name), two):
+            raise AssertionError(f"knn_query: query_cat's {name} differs "
+                                 "from two query calls")
+    gated = int((res.valid.all(dim=1) & (res.sqdist[:, 4] < 1.0)).sum())
 
     # the small case: 64 buckets and 4 candidates a bucket, so that most of
     # the 27 probes collide, buckets overflow, and rows come up short
     gen = np.random.default_rng(3)
     pts = torch.from_numpy(gen.uniform(-6, 6, (3000, 3)).astype(np.float32)).to(dev)
     pmask = torch.from_numpy(gen.random(3000) < 0.9).to(dev)
-    tq = torch.from_numpy(gen.uniform(-8, 8, (1000, 3)).astype(np.float32)).to(dev)
+    tq = gen.uniform(-8, 8, (1000, 3)).astype(np.float32)
+    tq[:2] = _EXTREME_Q   # probe 13 hashes the cell (INT32_MIN, 0, 0)
+    tq = torch.from_numpy(tq).to(dev)
     tqm = torch.from_numpy(gen.random(1000) < 0.8).to(dev)
     tiny = knn.build(pts, pmask, 1.0, 64)
-    tres, terr = _knn_equal("64 buckets, 4 candidates", tiny, tq, tqm, 5, 4)
+    tres, terr = _knn_equal("64 buckets, 4 candidates", tiny, None, tq, tqm,
+                            None, 5, 4)
     short = int((~tres.valid).any(dim=1).sum())
     if short == 0 or bool(tres.valid[~tqm].any()):
         raise AssertionError("knn_query: the small case has no short rows, "
                              "or a masked query came back valid")
-    one, _ = _knn_equal("k=1", tiny, tq, tqm, 1, 4)
+    for k in (1, 16):
+        _, e = _knn_equal(f"64 buckets, k={k}", tiny, None, tq, tqm, None,
+                          k, 4)
+        terr = max(terr, e)
+    lgrid, lq, lqm = _lattice_grid(dev)
+    ties = {}
+    for k in (5, 16):
+        lres, e = _knn_equal(f"lattice ties, k={k}", lgrid, None, lq, lqm,
+                             None, k, 8)
+        ties[k] = _ties_out_of_index_order(lgrid, lres)
+        terr = max(terr, e)
+    if min(ties.values()) == 0:
+        raise AssertionError(f"knn_query: the lattice case has no ties out "
+                             f"of point-index order ({ties})")
+    mixed_q = torch.cat([tq[:333], lq]).contiguous()
+    mixed_m = torch.cat([tqm[:333], lqm]).contiguous()
+    for k in (5, 16):
+        _, e = _knn_equal(f"query_cat of the small case and the lattice, "
+                          f"k={k}", tiny, lgrid, mixed_q, mixed_m, 333, k,
+                          4 if k == 5 else 8)
+        terr = max(terr, e)
+    err = max(err, terr)
 
-    def both(fn):
-        def run():
-            fn(cgrid, cq, cqm, k=5, candidates_per_cell=cand)
-            fn(sgrid, sq, sqm, k=5, candidates_per_cell=cand)
-        return run
+    def call():
+        knn.query_cat(cgrid, sgrid, q, qm, n_a, k=5, candidates_per_cell=cand)
 
-    ms, plain_ms = _kernel_and_plain_ms(both(knn.query), both(knn.query_plain))
-    c_ms = _cuda_ms(lambda: knn.query(cgrid, cq, cqm, k=5,
-                                      candidates_per_cell=cand))
-    s_ms = _cuda_ms(lambda: knn.query(sgrid, sq, sqm, k=5,
-                                      candidates_per_cell=cand))
+    ms, plain_ms = _kernel_and_plain_ms(
+        call, lambda: knn.query_cat_plain(cgrid, sgrid, q, qm, n_a, k=5,
+                                          candidates_per_cell=cand))
     floor_ms = _cuda_ms(lambda: knn.query(sgrid, sq[:1], sqm[:1], k=5,
                                           candidates_per_cell=cand))
-    device_ms = _device_ms(both(knn.query), "knn_query_kernel")
-    cb, co, cn = _knn_work(cgrid, cq, cqm, 5, cand)
-    sb, so, sn = _knn_work(sgrid, sq, sqm, 5, cand)
-    bound_ms, bound_by = _bound(cb + sb, co + so)
-    err = max(cerr, serr, terr)
-    print(f"phase 3: knn_query == twin, all slots: {n_a} corner queries on "
-          f"{int(ccloud.mask.sum())} of {cgrid.xyz.shape[0]} map points, "
-          f"{q.shape[0] - n_a} surf queries on {int(scloud.mask.sum())} of "
-          f"{sgrid.xyz.shape[0]} (k=5, C={cand}, H={cgrid.table_size}; "
-          f"{gated} rows pass the 1 m gate; {cn} + {sn} candidates measured); "
-          f"small case 1000 queries, H=64, C=4: {short} short rows; "
-          f"max_abs_err {err}; both launches {ms:.4f} ms (corners "
-          f"{c_ms:.4f}, surfs {s_ms:.4f}), plain {plain_ms:.4f} ms (CUDA "
-          f"events, 100 calls); one query {floor_ms:.4f} ms; on the device "
-          f"alone {_fmt_ms(device_ms)} (torch.profiler); bound "
-          f"{bound_ms:.6f} ms by {bound_by} ({cb + sb} B, {co + so} "
-          "operations)", flush=True)
+    host_us = _host_us(call)
+    device_ms = _device_ms(call, "knn_query_kernel")
+    work = knn_query_work(cgrid, sgrid, q, qm, n_a, cand, res.idx)
+    bound_ms, bound_by = _bound(work["bytes"], work["ops"])
+    print(f"phase 3b: knn_query == twin, all slots: one query_cat of {n_a} "
+          f"corner queries on {int(ccloud.mask.sum())} of "
+          f"{cgrid.xyz.shape[0]} map points and {q.shape[0] - n_a} surf "
+          f"queries on {int(scloud.mask.sum())} of {sgrid.xyz.shape[0]} "
+          f"(k=5, C={cand}, H={cgrid.table_size}; {gated} rows pass the 1 m "
+          f"gate; {work['candidates']} candidates measured), equal to two "
+          f"query calls; small case 1000 queries, H=64, C=4, k=1/5/16: "
+          f"{short} short rows; lattice 900 queries, k=5/16: {ties} ties out "
+          f"of point-index order; query_cat of the two with n_a=333; "
+          f"max_abs_err {err}; one launch {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (CUDA events, 100 calls); host {host_us:.1f} "
+          f"us per call (1000 calls, no sync); one query {floor_ms:.4f} ms; "
+          f"on the device alone {_fmt_ms(device_ms)} (torch.profiler); "
+          f"bound {bound_ms:.6f} ms by {bound_by} ({work['bytes']} B: "
+          f"{work['bucket_entries']} bucket entries, {work['points']} "
+          f"points, {work['winners']} winners; {work['ops']} operations)",
+          flush=True)
     return {"name": "knn_query", "route": "cuda",
             "source": "msst_torch/csrc/knn_query.cu",
             "replaces": "msst_tpu/ops/knn_pallas.py:86",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "floor_ms": floor_ms, "device_ms": device_ms,
-            "corner_ms": c_ms, "surf_ms": s_ms}
+            "floor_ms": floor_ms, "device_ms": device_ms, "host_us": host_us,
+            "work": work}
 
 
 def _gather_cases(gen):
@@ -536,26 +684,46 @@ def phase_main_path(tag, method, kernel, data, card):
     import torch
 
     from msst_torch.models.liosam import LioSam
-    from msst_torch.ops import knn, voxelmap
+    from msst_torch.ops import knn, registration, voxelmap
 
     counters = {"voxel_lookup_cat": voxelmap.lookup_cat, "knn_query": knn.query}
     lio = LioSam(_params(method), device="cuda", boot_scans=BOOT_SCANS)
-    for fn in counters.values():
-        fn.launches = 0
-    step_ms, iters = [], []
-    t_all = time.perf_counter()
-    for s in data:
-        t0 = time.perf_counter()
-        out = _feed(lio, s)
-        out.pose_matrix.cpu()   # scan-to-pose: the pose is on the host
-        step_ms.append(1000.0 * (time.perf_counter() - t0))
-        iters.append(out.s2m_iterations)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_all
-    launched = {name: fn.launches for name, fn in counters.items()}
+    # every Gauss-Newton iteration of the drive (the boot re-feed's too),
+    # kept on the device and summed after it
+    entry = "scan_to_map" if method == "knn" else "scan_to_map_voxel"
+    inner, gn_runs = getattr(registration, entry), []
+
+    def counted(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        gn_runs.append(out.iterations)
+        return out
+
+    setattr(registration, entry, counted)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        step_ms, iters = [], []
+        t_all = time.perf_counter()
+        for s in data:
+            t0 = time.perf_counter()
+            out = _feed(lio, s)
+            out.pose_matrix.cpu()   # scan-to-pose: the pose is on the host
+            step_ms.append(1000.0 * (time.perf_counter() - t0))
+            iters.append(out.s2m_iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        launched = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        setattr(registration, entry, inner)
     launches = launched[kernel]
+    gn_total = int(torch.stack(gn_runs).sum()) if gn_runs else 0
     if launches == 0:
         raise AssertionError(f"the {method} path never launched {kernel}")
+    # the knn path launches B2 once per iteration; the voxel path re-uses a
+    # lookup while the pose has not moved past its re-association gate
+    if (launches != gn_total) if method == "knn" else (launches > gn_total):
+        raise AssertionError(f"{launches} {kernel} launches for {gn_total} "
+                             f"Gauss-Newton iterations ({method})")
     traj = lio.trajectory
     max_err, final_err, drift, path_len = _accuracy(traj, data)
     # steady state: drop the dynamic-init boot window and its re-feed
@@ -565,6 +733,7 @@ def phase_main_path(tag, method, kernel, data, card):
     res = {
         "method": method, "scans": len(data), "wall_s": wall,
         "launches": launches, "launched": launched,
+        "gn_iterations": gn_total,
         "steps": len(data) + BOOT_SCANS,
         "gn_iterations_per_scan": float(gn[boot:].mean()),
         "scans_per_s": len(steady) / (steady.sum() / 1000.0),
@@ -577,7 +746,7 @@ def phase_main_path(tag, method, kernel, data, card):
     }
     print(f"phase {tag}: LioSam cuda, scan2map_method={method}, over "
           f"{len(data)} scans x {N_SCAN}x{HORIZON}: {launches} {kernel} "
-          f"launches in {res['steps']} steps, "
+          f"launches for {gn_total} GN iterations in {res['steps']} steps, "
           f"{res['gn_iterations_per_scan']:.2f} GN iterations per scan, "
           f"{res['keyframes']} keyframes; max err {max_err:.4f} m, final err "
           f"{final_err:.4f} m, drift {drift:.4f} %/m over {path_len:.1f} m; "
@@ -859,6 +1028,21 @@ def _build_kernels(names):
     return secs
 
 
+def _resource_usage(names):
+    """Print and return each kernel's registers and spill bytes as ``nvcc
+    -Xptxas -v`` reported them at the build."""
+    from msst_torch import kernels
+
+    usage = {name: kernels.resource_usage(name) for name in names}
+    for name, fns in usage.items():
+        print(f"        {name}.cu (ptxas): " + ("; ".join(
+            f"{fn} {regs} registers, spills {st} B stored / {ld} B loaded"
+            for fn, (regs, st, ld) in sorted(fns.items()))
+            or "no report (built before this script)"), flush=True)
+    return {name: {fn: list(v) for fn, v in fns.items()}
+            for name, fns in usage.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -892,6 +1076,7 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.2f} s" if v else f"{k} (already built)"
                           for k, v in build_s.items())
               + f"; {time.perf_counter() - t0:.2f} s in all", flush=True)
+        usage = _resource_usage(build_s)
         data, loop_data = bench_job.result(), loop_job.result()
     print(f"        simulated {N_SCANS} + {N_LOOP_SCANS} scans in "
           f"{time.perf_counter() - t_sim:.1f} s", flush=True)
@@ -901,7 +1086,8 @@ def main(argv=None) -> int:
     b2 = phase_knn_query(feats, queries, p)
     del feats, queries
     b3 = phase_gather_rows(torch.device("cuda"))
-    res = {"card": card, "build_s": build_s, "kernels": [b1, b2, b3]}
+    res = {"card": card, "build_s": build_s, "resource_usage": usage,
+           "kernels": [b1, b2, b3]}
     res["voxel"] = phase_main_path("4a", "voxel", "voxel_lookup_cat", data,
                                    card)
     res["knn"] = phase_main_path("4b", "knn", "knn_query", data, card)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,9 +24,11 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
 # no --use_fast_math: the kernels' cell indices need IEEE division, and
-# --fmad=false keeps a*b+c from contracting into an FMA that rounds once
+# --fmad=false keeps a*b+c from contracting into an FMA that rounds once;
+# -Xptxas -v reports each kernel's registers and spills (resource_usage)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 _C = ctypes
 _SIGNATURES = {
@@ -39,13 +42,13 @@ _SIGNATURES = {
              _C.c_void_p, _C.c_void_p]),
     },
     "knn_query": {
-        "knn_query": (
+        "knn_query_cat": (
             _C.c_int,
-            [_C.c_void_p, _C.c_void_p, _C.c_int,
-             _C.c_void_p, _C.c_void_p, _C.c_int,
-             _C.c_void_p, _C.c_void_p, _C.c_int,
-             _C.c_void_p, _C.c_int, _C.c_int, _C.c_float,
-             _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+            [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int]
+            + 2 * [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_void_p,
+                   _C.c_void_p, _C.c_int, _C.c_void_p]
+            + [_C.c_int, _C.c_int, _C.c_float,
+               _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
     },
     "gather_rows": {
         "gather_rows": (
@@ -89,11 +92,69 @@ def build(name: str) -> Path:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        _report_path(out).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def check_tensors(names, tensors, dtypes, device: int) -> None:
+    """Raise ValueError unless each tensor is contiguous, of its dtype and
+    on `device` (a device index, -1 for the CPU): the checks every kernel
+    wrapper makes before it launches."""
+    for name, t, dtype in zip(names, tensors, dtypes):
+        if (t.get_device() != device or t.dtype is not dtype
+                or not t.is_contiguous()):
+            if t.get_device() != device:
+                raise ValueError(f"{name} is on {t.device}, not with the "
+                                 "other inputs")
+            if t.dtype is not dtype:
+                raise ValueError(f"{name} must be {dtype}")
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def _short_name(mangled: str) -> str:
+    """``knn_query_kernel<5, 16>`` for a kernel's mangled name (c++filt
+    where the toolchain has it, else the mangled name)."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return mangled
+    name = name.replace("(anonymous namespace)::", "")
+    m = re.match(r"(?:void )?([\w:]+(?:<[^()]*>)?)", name)
+    return m.group(1) if m else name
+
+
+def resource_usage(name: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of
+    ``csrc/<name>.cu``, from ``nvcc -Xptxas -v`` at its build (empty where
+    the library was built without that report)."""
+    report = _report_path(library_path(name))
+    if not report.exists():
+        return {}
+    usage, fn, spills = {}, None, (0, 0)
+    for line in report.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            usage[_short_name(fn)] = (int(m.group(1)),) + spills
+            fn = None
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

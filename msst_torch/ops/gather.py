@@ -16,11 +16,13 @@ gathers keyframe-store rows through it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from .. import kernels
+
 Tensor = torch.Tensor
+
+_launch = None   # the kernel's C entry point, looked up at its first launch
 
 
 def gather_rows_plain(table: Tensor, idx: Tensor) -> Tensor:
@@ -31,30 +33,25 @@ def gather_rows_plain(table: Tensor, idx: Tensor) -> Tensor:
 def _gather_rows_cuda(table: Tensor, idx: Tensor) -> Tensor:
     """Launch ``gather_rows`` (msst_torch/csrc/gather_rows.cu) on the current
     stream.  Raises on anything the kernel does not take."""
-    from .. import kernels
-
-    if idx.device != table.device:
-        raise ValueError(f"idx is on {idx.device}, table on {table.device}")
-    if table.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise ValueError("table must be float32 and idx int32")
+    global _launch
+    dev = table.get_device()
+    kernels.check_tensors(("table", "idx"), (table, idx),
+                          (torch.float32, torch.int32), dev)
     if table.ndim != 2 or idx.ndim != 1:
         raise ValueError("table must be (H, W) and idx (N,)")
-    if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("table and idx must be contiguous")
     H, W = table.shape
     N = idx.shape[0]
     if H < 1 or W > 65535 * 256:
         raise ValueError(f"table shape {(H, W)}: need H >= 1, W <= {65535 * 256}")
-    out = torch.empty((N, W), dtype=torch.float32, device=table.device)
+    out = table.new_empty((N, W))
     if N and W:
         vec = int(W % 4 == 0 and table.data_ptr() % 16 == 0
                   and out.data_ptr() % 16 == 0)
-        lib = kernels.load("gather_rows")
-        ptr = ctypes.c_void_p
-        err = lib.gather_rows(
-            ptr(table.data_ptr()), H, W, ptr(idx.data_ptr()), N,
-            ptr(out.data_ptr()), vec,
-            ptr(torch.cuda.current_stream(table.device).cuda_stream))
+        if _launch is None:
+            _launch = kernels.load("gather_rows").gather_rows
+        err = _launch(table.data_ptr(), H, W, idx.data_ptr(), N,
+                      out.data_ptr(), vec,
+                      torch._C._cuda_getCurrentRawStream(dev))
         gather_rows.launches += 1
         if err != 0:
             raise RuntimeError(f"gather_rows launch failed: cudaError {err}")

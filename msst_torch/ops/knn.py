@@ -9,21 +9,22 @@ cell and takes the exact k smallest among them.  It is exact k-NN as long
 as no bucket overflows its candidate cap and the true neighbours lie within
 one cell size of the query.
 
-:func:`query` is the hot op of the knn scan-to-map path.  On a CUDA tensor
-it runs as the hand-written kernel ``msst_torch/csrc/knn_query.cu``, on a
-CPU tensor as its plain PyTorch twin :func:`query_plain`.
+:func:`query_cat` (both maps' queries in one pass) is the hot op of the
+knn scan-to-map path.  On a CUDA tensor it and :func:`query` run as the
+hand-written kernel ``msst_torch/csrc/knn_query.cu``, on a CPU tensor as
+their plain PyTorch twins :func:`query_cat_plain` and :func:`query_plain`.
 :func:`nearest1_brute`, the exact 1-NN of the loop-closure ICP, is a
 chunked dense sweep.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from . import segments
 from .numeric import hash3 as _hash_coords
 
@@ -33,7 +34,7 @@ Tensor = torch.Tensor
 _OFFSETS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
                  for dz in (-1, 0, 1))
 
-# largest k the CUDA kernel keeps in its per-thread sorted list
+# largest k the CUDA kernel keeps in its per-lane sorted lists
 KERNEL_MAX_K = 64
 
 
@@ -91,6 +92,20 @@ def _small_topk_min(d2: Tensor, k: int) -> tuple[Tensor, Tensor]:
     return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
 
 
+def probe_buckets(grid: HashGrid, q_xyz: Tensor) -> tuple[Tensor, Tensor]:
+    """(hb, first): the bucket (Q, 27) int64 of each query's 27 probes in
+    probe order, and whether no earlier probe of the query hit that bucket
+    (Q, 27) bool."""
+    offsets = torch.tensor(_OFFSETS, dtype=torch.int32, device=q_xyz.device)
+    qc = torch.floor(q_xyz / grid.cell_size).to(torch.int32)
+    cells = qc[:, None, :] + offsets[None]                      # (Q, 27, 3)
+    hb = _hash_coords(cells, grid.table_size).long()
+    eq = hb[:, :, None] == hb[:, None, :]                       # (Q, 27, 27)
+    earlier = torch.tril(torch.ones((27, 27), dtype=torch.bool,
+                                    device=q_xyz.device), diagonal=-1)
+    return hb, ~torch.any(eq & earlier[None], dim=2)
+
+
 def query_plain(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
                 candidates_per_cell: int = 16,
                 max_sqdist: float = math.inf) -> KnnResult:
@@ -105,21 +120,13 @@ def query_plain(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
     Qn = q_xyz.shape[0]
     dev = q_xyz.device
     n = grid.xyz.shape[0]
-    offsets = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
-    qc = torch.floor(q_xyz / grid.cell_size).to(torch.int32)
-    cells = qc[:, None, :] + offsets[None]                      # (Q, 27, 3)
-    hb = _hash_coords(cells, grid.table_size).long()            # (Q, 27)
+    hb, first_probe = probe_buckets(grid, q_xyz)
     start = grid.bucket_start[hb]
     count = grid.bucket_count[hb]
     lane = torch.arange(C, dtype=torch.int32, device=dev)
     cand = start[..., None] + lane                              # (Q, 27, C)
     ok = lane < count[..., None]
     cand = torch.where(ok, cand, n - 1).reshape(Qn, 27 * C).long()
-
-    eq = hb[:, :, None] == hb[:, None, :]                       # (Q, 27, 27)
-    earlier = torch.tril(torch.ones((27, 27), dtype=torch.bool, device=dev),
-                         diagonal=-1)
-    first_probe = ~torch.any(eq & earlier[None], dim=2)
     ok = (ok & first_probe[..., None]).reshape(Qn, 27 * C)
 
     diff = grid.xyz[cand] - q_xyz[:, None, :]                   # (Q, 27C, 3)
@@ -133,68 +140,107 @@ def query_plain(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
     return KnnResult(grid.orig_idx[idx], d2k, valid)
 
 
-def _query_cuda(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int,
-                candidates_per_cell: int, max_sqdist: float) -> KnnResult:
-    """Launch ``knn_query`` (msst_torch/csrc/knn_query.cu) on the current
-    stream.  Raises on anything the kernel does not take."""
-    from .. import kernels
+def query_cat_plain(grid_a: HashGrid, grid_b: HashGrid, q_xyz: Tensor,
+                    q_mask: Tensor, n_a: int, k: int = 5,
+                    candidates_per_cell: int = 16,
+                    max_sqdist: float = math.inf) -> KnnResult:
+    """Two maps' queries in plain PyTorch (the kernel's twin): rows
+    [0, n_a) against `grid_a`, the rest against `grid_b`, exactly the
+    concatenation of two :func:`query_plain` calls."""
+    _check_n_a(n_a, q_xyz.shape[0])
+    a = query_plain(grid_a, q_xyz[:n_a], q_mask[:n_a], k,
+                    candidates_per_cell, max_sqdist)
+    b = query_plain(grid_b, q_xyz[n_a:], q_mask[n_a:], k,
+                    candidates_per_cell, max_sqdist)
+    return KnnResult(*(torch.cat([x, y]) for x, y in zip(a, b)))
 
+
+def _check_n_a(n_a: int, n_q: int) -> None:
+    if not 0 <= n_a <= n_q:
+        raise ValueError(f"n_a={n_a} outside [0, {n_q}]")
+
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_GRID_DTYPES = (_F32, _I32, _I32, _I32, _F32)   # in HashGrid's field order
+_GRID_NAMES = {label: tuple(f"{label}.{f}" for f in HashGrid._fields)
+               for label in ("grid_a", "grid_b")}
+_launch = None   # the kernel's C entry point, looked up at its first launch
+
+
+def _grid_args(label: str, grid: HashGrid, dev: int) -> tuple:
+    """The launch arguments of one grid, after the checks that raise on
+    what the kernel does not take."""
+    kernels.check_tensors(_GRID_NAMES[label], grid, _GRID_DTYPES, dev)
+    xyz, orig_idx, start, count, cell = grid
+    n = xyz.shape[0]
+    if n < 1 or xyz.shape != (n, 3) or orig_idx.shape != (n,):
+        raise ValueError(f"{label}.xyz must be (N, 3) with N >= 1 and "
+                         f"{label}.orig_idx (N,)")
+    table = start.shape[0]
+    if table < 1 or start.shape != (table,) or count.shape != (table,):
+        raise ValueError(f"{label}.bucket_start and {label}.bucket_count "
+                         "must be (H,) with H >= 1")
+    if cell.numel() != 1:
+        raise ValueError(f"{label}.cell_size must hold one value")
+    return (xyz.data_ptr(), orig_idx.data_ptr(), n, start.data_ptr(),
+            count.data_ptr(), table, cell.data_ptr())
+
+
+def _query_cat_cuda(grid_a: HashGrid, grid_b: HashGrid, q_xyz: Tensor,
+                    q_mask: Tensor, n_a: int, k: int,
+                    candidates_per_cell: int, max_sqdist: float
+                    ) -> KnnResult:
+    """Launch ``knn_query_cat`` (msst_torch/csrc/knn_query.cu) on the
+    current stream.  Raises on anything the kernel does not take."""
+    global _launch
+    dev = q_xyz.get_device()
+    kernels.check_tensors(("q_xyz", "q_mask"), (q_xyz, q_mask), (_F32, _BOOL),
+                          dev)
     Qn = q_xyz.shape[0]
-    n = grid.xyz.shape[0]
-    dev = q_xyz.device
-    args = {"q_xyz": q_xyz, "q_mask": q_mask, "grid.xyz": grid.xyz,
-            "grid.orig_idx": grid.orig_idx,
-            "grid.bucket_start": grid.bucket_start,
-            "grid.bucket_count": grid.bucket_count,
-            "grid.cell_size": grid.cell_size}
-    for name, t in args.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name in ("q_xyz", "grid.xyz", "grid.cell_size"):
-        if args[name].dtype != torch.float32:
-            raise ValueError(f"{name} must be float32")
-    for name in ("grid.orig_idx", "grid.bucket_start", "grid.bucket_count"):
-        if args[name].dtype != torch.int32:
-            raise ValueError(f"{name} must be int32")
-    if q_mask.dtype != torch.bool:
-        raise ValueError("q_mask must be bool")
     if q_xyz.shape != (Qn, 3) or q_mask.shape != (Qn,):
         raise ValueError("q_xyz must be (Q, 3) and q_mask (Q,)")
-    if n < 1 or grid.xyz.shape != (n, 3) or grid.orig_idx.shape != (n,):
-        raise ValueError("grid.xyz must be (N, 3) with N >= 1 and "
-                         "grid.orig_idx (N,)")
-    if (grid.table_size < 1
-            or grid.bucket_count.shape != grid.bucket_start.shape):
-        raise ValueError("grid.bucket_start and grid.bucket_count must be "
-                         "(H,) with H >= 1")
-    if grid.cell_size.numel() != 1:
-        raise ValueError("grid.cell_size must hold one value")
+    args_a = _grid_args("grid_a", grid_a, dev)
+    args_b = args_a if grid_b is grid_a else _grid_args("grid_b", grid_b, dev)
+    _check_n_a(n_a, Qn)
     if not 1 <= k <= KERNEL_MAX_K:
         raise ValueError(f"k={k} outside [1, {KERNEL_MAX_K}]")
     if candidates_per_cell < 1:
         raise ValueError("candidates_per_cell must be >= 1")
 
-    sqdist = torch.empty((Qn, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((Qn, k), dtype=torch.int32, device=dev)
-    valid = torch.empty((Qn, k), dtype=torch.bool, device=dev)
+    # three allocations: on the card's host one buffer cut into views costs
+    # more than three torch.empty calls (PERF.md)
+    sqdist = q_xyz.new_empty((Qn, k))
+    idx = q_xyz.new_empty((Qn, k), dtype=_I32)
+    valid = q_xyz.new_empty((Qn, k), dtype=_BOOL)
     if Qn:
-        lib = kernels.load("knn_query")
-        ptr = ctypes.c_void_p
-        err = lib.knn_query(
-            ptr(q_xyz.data_ptr()), ptr(q_mask.data_ptr()), Qn,
-            ptr(grid.xyz.data_ptr()), ptr(grid.orig_idx.data_ptr()), n,
-            ptr(grid.bucket_start.data_ptr()),
-            ptr(grid.bucket_count.data_ptr()), grid.table_size,
-            ptr(grid.cell_size.data_ptr()), k, candidates_per_cell,
-            float(max_sqdist),
-            ptr(sqdist.data_ptr()), ptr(idx.data_ptr()), ptr(valid.data_ptr()),
-            ptr(torch.cuda.current_stream(dev).cuda_stream))
+        if _launch is None:
+            _launch = kernels.load("knn_query").knn_query_cat
+        err = _launch(
+            q_xyz.data_ptr(), q_mask.data_ptr(), Qn, n_a, *args_a, *args_b,
+            k, candidates_per_cell, max_sqdist, sqdist.data_ptr(),
+            idx.data_ptr(), valid.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev))
         query.launches += 1
         if err != 0:
-            raise RuntimeError(f"knn_query launch failed: cudaError {err}")
+            raise RuntimeError(f"knn_query_cat launch failed: cudaError {err}")
     return KnnResult(idx, sqdist, valid)
+
+
+def query_cat(grid_a: HashGrid, grid_b: HashGrid, q_xyz: Tensor,
+              q_mask: Tensor, n_a: int, k: int = 5,
+              candidates_per_cell: int = 16,
+              max_sqdist: float = math.inf) -> KnnResult:
+    """Two maps' k-NN in one pass: rows [0, n_a) of the queries against
+    `grid_a`, the rest against `grid_b`; the same result as
+    ``query(grid_a, q[:n_a])`` and ``query(grid_b, q[n_a:])`` concatenated.
+
+    A CPU tensor takes the plain twin; a CUDA tensor launches the CUDA
+    kernel once or raises.  The launch counts in ``query.launches``."""
+    if q_xyz.device.type == "cpu":
+        return query_cat_plain(grid_a, grid_b, q_xyz, q_mask, n_a, k,
+                               candidates_per_cell, max_sqdist)
+    return _query_cat_cuda(grid_a, grid_b, q_xyz, q_mask, n_a, k,
+                           candidates_per_cell, max_sqdist)
 
 
 def query(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
@@ -204,8 +250,9 @@ def query(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
     (msst_tpu's ``knn.query`` contract).
 
     A CPU tensor takes the plain twin; a CUDA tensor launches the CUDA
-    kernel (msst_tpu's Pallas ``knn_pallas.query_pallas`` on the TPU) or
-    raises.  ``query.launches`` counts kernel launches."""
+    kernel (msst_tpu's Pallas ``knn_pallas.query_pallas`` on the TPU) with
+    one grid, or raises.  ``query.launches`` counts kernel launches, those
+    of :func:`query_cat` too."""
     if q_xyz.device.type == "cpu":
         return query_plain(grid, q_xyz, q_mask, k, candidates_per_cell,
                            max_sqdist)
@@ -214,6 +261,13 @@ def query(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
 
 
 query.launches = 0
+
+
+def _query_cuda(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int,
+                candidates_per_cell: int, max_sqdist: float) -> KnnResult:
+    """One grid's launch: the two-map kernel with every query in map a."""
+    return _query_cat_cuda(grid, grid, q_xyz, q_mask, q_xyz.shape[0], k,
+                           candidates_per_cell, max_sqdist)
 
 
 def nearest1_brute(tgt_xyz: Tensor, tgt_mask: Tensor, q_xyz: Tensor,

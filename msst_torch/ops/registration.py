@@ -180,6 +180,12 @@ def _corner_coeffs(
     lam_max > 3 * lam_mid, weight s = 1 - 0.9|d|, keep s > 0.1."""
     res = knn.query(grid, p_world, p_mask, k=5,
                     candidates_per_cell=candidates_per_cell)
+    return _corner_from_knn(res, p_world, p_mask, map_xyz)
+
+
+def _corner_from_knn(res: knn.KnnResult, p_world: Tensor, p_mask: Tensor,
+                     map_xyz: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """:func:`_corner_coeffs` after its 5-NN query `res`."""
     ok = p_mask & torch.all(res.valid, dim=1) & (res.sqdist[:, 4] < 1.0)
     nbrs = map_xyz[res.idx.long()]               # (N, 5, 3)
     c = torch.mean(nbrs, dim=1)
@@ -211,6 +217,13 @@ def _surf_coeffs(
     which is singular for planes through the origin."""
     res = knn.query(grid, p_world, p_mask, k=5,
                     candidates_per_cell=candidates_per_cell)
+    return _surf_from_knn(res, p_world, p_scan, p_mask, map_xyz)
+
+
+def _surf_from_knn(res: knn.KnnResult, p_world: Tensor, p_scan: Tensor,
+                   p_mask: Tensor, map_xyz: Tensor
+                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """:func:`_surf_coeffs` after its 5-NN query `res`."""
     ok = p_mask & torch.all(res.valid, dim=1) & (res.sqdist[:, 4] < 1.0)
     nbrs = map_xyz[res.idx.long()]
     c = torch.mean(nbrs, dim=1)
@@ -241,10 +254,11 @@ def scan_to_map(
     candidates_per_cell: int = 24,
 ) -> ScanToMapResult:
     """LOAM scan-to-map Gauss-Newton on (roll, pitch, yaw, x, y, z): each
-    iteration two 5-NN queries (``knn.query``: the CUDA kernel on a CUDA
-    tensor), the line and plane coefficients, a damped 6x6 solve, the
-    eigenvalue degeneracy projection fixed on the first iteration, and the
-    reference's convergence gates (0.05 deg, 0.05 cm).
+    iteration the corners' and the surfs' 5-NN in one query
+    (``knn.query_cat``: one launch of the CUDA kernel on a CUDA tensor), the
+    line and plane coefficients, a damped 6x6 solve, the eigenvalue
+    degeneracy projection fixed on the first iteration, and the reference's
+    convergence gates (0.05 deg, 0.05 cm).
 
     The loop runs on the host and reads one stop flag back from the device
     each iteration, like :func:`scan_to_map_voxel`."""
@@ -254,6 +268,9 @@ def scan_to_map(
     degenerate = torch.zeros((), dtype=torch.bool, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     nc = ns = torch.zeros((), dtype=torch.int32, device=dev)
+    Qc = corner_scan.shape[0]
+    scan_pts = torch.cat([corner_scan, surf_scan])
+    scan_mask = torch.cat([corner_mask, surf_mask])
 
     def jac(n, pts, m, dRs):
         jr = torch.stack([torch.sum(n * (pts @ dR.T), dim=1) for dR in dRs],
@@ -263,12 +280,15 @@ def scan_to_map(
     it = 0
     while it < max_iters:
         R, *dRs = _rot_and_derivs(pose[:3])
-        t = pose[3:]
-        cn, cd, cm = _corner_coeffs(corner_scan @ R.T + t, corner_mask,
-                                    corner_grid, corner_map_xyz,
-                                    candidates_per_cell)
-        sn, sd, sm = _surf_coeffs(surf_scan @ R.T + t, surf_scan, surf_mask,
-                                  surf_grid, surf_map_xyz, candidates_per_cell)
+        w = scan_pts @ R.T + pose[3:]
+        res = knn.query_cat(corner_grid, surf_grid, w, scan_mask, Qc, k=5,
+                            candidates_per_cell=candidates_per_cell)
+        cn, cd, cm = _corner_from_knn(
+            knn.KnnResult(*(f[:Qc] for f in res)), w[:Qc], corner_mask,
+            corner_map_xyz)
+        sn, sd, sm = _surf_from_knn(
+            knn.KnnResult(*(f[Qc:] for f in res)), w[Qc:], surf_scan,
+            surf_mask, surf_map_xyz)
         cmf, smf = cm.to(pose.dtype), sm.to(pose.dtype)
         Jc = jac(cn, corner_scan, cmf, dRs)
         Js = jac(sn, surf_scan, smf, dRs)

@@ -12,11 +12,11 @@ tensor as its plain PyTorch twin (:func:`lookup_cat_plain`).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from . import linalg, segments
 from .numeric import hash3 as _hash3
 
@@ -378,6 +378,17 @@ class VoxelLookup(NamedTuple):
     d: Tensor          # (Q,) matched plane offset
 
 
+def octant_cells(q_xyz: Tensor, leaf: Tensor, origin: Tensor) -> Tensor:
+    """(Q, 8, 3) int32: the cell holding each query and its 7 octant
+    neighbours toward the query's offset in the cell, in msst_tpu's combo
+    order."""
+    g = (q_xyz - origin) / leaf
+    base = torch.floor(g).to(torch.int32)
+    step = torch.where(g - base.to(torch.float32) >= 0.5, 1, -1).to(torch.int32)
+    combos = torch.tensor(_COMBOS, dtype=torch.int32, device=q_xyz.device)
+    return base[:, None, :] + combos[None] * step[:, None, :]
+
+
 def lookup_cat_plain(vmap_a: VoxelFeatureMap, vmap_b: VoxelFeatureMap,
                      q_xyz: Tensor, q_mask: Tensor, n_a: int) -> VoxelLookup:
     """The lookup in plain PyTorch (the kernel's twin).
@@ -394,12 +405,7 @@ def lookup_cat_plain(vmap_a: VoxelFeatureMap, vmap_b: VoxelFeatureMap,
     is_a = torch.arange(Qn, device=dev) < n_a
     leaf = torch.where(is_a, vmap_a.leaf, vmap_b.leaf)
     origin = torch.where(is_a[:, None], vmap_a.origin, vmap_b.origin)
-    g = (q_xyz - origin) / leaf[:, None]
-    base = torch.floor(g).to(torch.int32)
-    frac = g - base.to(torch.float32)
-    step = torch.where(frac >= 0.5, 1, -1).to(torch.int32)
-    combos = torch.tensor(_COMBOS, dtype=torch.int32, device=dev)
-    cells = base[:, None, :] + combos[None] * step[:, None, :]   # (Q, 8, 3)
+    cells = octant_cells(q_xyz, leaf[:, None], origin)          # (Q, 8, 3)
 
     hb = torch.where(is_a[:, None], _hash3(cells, vmap_a.table_size),
                      _hash3(cells, vmap_b.table_size) + vmap_a.table_size)
@@ -423,58 +429,58 @@ def lookup_cat_plain(vmap_a: VoxelFeatureMap, vmap_b: VoxelFeatureMap,
                        mean=win[:, 1:4], direction=win[:, 4:7], d=win[:, 7])
 
 
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+_LOOKUP_NAMES = ("q_xyz", "q_mask", "probe_a", "probe_b", "leaf_a",
+                 "origin_a", "leaf_b", "origin_b")
+_LOOKUP_DTYPES = (_F32, _BOOL) + (_F32,) * 6
+_launch = None   # the kernel's C entry point, looked up at its first launch
+
+
 def _lookup_cat_cuda(vmap_a: VoxelFeatureMap, vmap_b: VoxelFeatureMap,
                      q_xyz: Tensor, q_mask: Tensor, n_a: int) -> VoxelLookup:
     """Launch ``voxel_lookup_cat`` (msst_torch/csrc/voxel_lookup.cu) on the
     current stream.  Raises on anything the kernel does not take."""
-    from .. import kernels
-
+    global _launch
+    dev = q_xyz.get_device()
+    kernels.check_tensors(
+        _LOOKUP_NAMES, (q_xyz, q_mask, vmap_a.probe, vmap_b.probe,
+                        vmap_a.leaf, vmap_a.origin, vmap_b.leaf,
+                        vmap_b.origin), _LOOKUP_DTYPES, dev)
     Qn = q_xyz.shape[0]
-    dev = q_xyz.device
-    args = {"q_xyz": q_xyz, "q_mask": q_mask,
-            "probe_a": vmap_a.probe, "probe_b": vmap_b.probe,
-            "leaf_a": vmap_a.leaf, "origin_a": vmap_a.origin,
-            "leaf_b": vmap_b.leaf, "origin_b": vmap_b.origin}
-    for name, t in args.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name in ("q_xyz", "probe_a", "probe_b", "leaf_a", "origin_a",
-                 "leaf_b", "origin_b"):
-        if args[name].dtype != torch.float32:
-            raise ValueError(f"{name} must be float32")
-    if q_mask.dtype != torch.bool:
-        raise ValueError("q_mask must be bool")
     if q_xyz.shape != (Qn, 3) or q_mask.shape != (Qn,):
         raise ValueError("q_xyz must be (Q, 3) and q_mask (Q,)")
-    for name in ("probe_a", "probe_b"):
-        if args[name].shape[1] != PROBE_C * 8 or args[name].data_ptr() % 16:
-            raise ValueError(f"{name} must be (H, 24) and 16-byte aligned")
-    for name, n in (("leaf_a", 1), ("origin_a", 3), ("leaf_b", 1),
-                    ("origin_b", 3)):
-        if args[name].numel() != n:
-            raise ValueError(f"{name} must hold {n} value(s)")
+    for name, vm in (("probe_a", vmap_a), ("probe_b", vmap_b)):
+        # the twin hashes with table_size: the kernel must see the same H
+        if (vm.probe.shape != (vm.table_size, PROBE_C * 8)
+                or vm.probe.data_ptr() % 16):
+            raise ValueError(f"{name} must be (H, 24) with H the map's "
+                             "table_size, and 16-byte aligned")
+    if (vmap_a.leaf.numel() != 1 or vmap_b.leaf.numel() != 1
+            or vmap_a.origin.numel() != 3 or vmap_b.origin.numel() != 3):
+        raise ValueError("leaf_a and leaf_b must hold 1 value, origin_a and "
+                         "origin_b 3")
     if not 0 <= n_a <= Qn:
         raise ValueError(f"n_a={n_a} outside [0, {Qn}]")
 
-    idx = torch.empty(Qn, dtype=torch.int32, device=dev)
-    found = torch.empty(Qn, dtype=torch.bool, device=dev)
-    mean = torch.empty((Qn, 3), dtype=torch.float32, device=dev)
-    direction = torch.empty((Qn, 3), dtype=torch.float32, device=dev)
-    d = torch.empty(Qn, dtype=torch.float32, device=dev)
+    # five allocations: on the card's host one buffer cut into views costs
+    # more than five torch.empty calls (PERF.md)
+    idx = q_xyz.new_empty(Qn, dtype=_I32)
+    found = q_xyz.new_empty(Qn, dtype=_BOOL)
+    mean = q_xyz.new_empty((Qn, 3))
+    direction = q_xyz.new_empty((Qn, 3))
+    d = q_xyz.new_empty(Qn)
     if Qn:
-        lib = kernels.load("voxel_lookup")
-        ptr = ctypes.c_void_p
-        err = lib.voxel_lookup_cat(
-            ptr(q_xyz.data_ptr()), ptr(q_mask.data_ptr()), Qn, n_a,
-            ptr(vmap_a.probe.data_ptr()), vmap_a.table_size,
-            ptr(vmap_b.probe.data_ptr()), vmap_b.table_size,
-            ptr(vmap_a.leaf.data_ptr()), ptr(vmap_a.origin.data_ptr()),
-            ptr(vmap_b.leaf.data_ptr()), ptr(vmap_b.origin.data_ptr()),
-            ptr(idx.data_ptr()), ptr(found.data_ptr()), ptr(mean.data_ptr()),
-            ptr(direction.data_ptr()), ptr(d.data_ptr()),
-            ptr(torch.cuda.current_stream(dev).cuda_stream))
+        if _launch is None:
+            _launch = kernels.load("voxel_lookup").voxel_lookup_cat
+        err = _launch(
+            q_xyz.data_ptr(), q_mask.data_ptr(), Qn, n_a,
+            vmap_a.probe.data_ptr(), vmap_a.table_size,
+            vmap_b.probe.data_ptr(), vmap_b.table_size,
+            vmap_a.leaf.data_ptr(), vmap_a.origin.data_ptr(),
+            vmap_b.leaf.data_ptr(), vmap_b.origin.data_ptr(),
+            idx.data_ptr(), found.data_ptr(), mean.data_ptr(),
+            direction.data_ptr(), d.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev))
         lookup_cat.launches += 1
         if err != 0:
             raise RuntimeError(f"voxel_lookup_cat launch failed: cudaError {err}")

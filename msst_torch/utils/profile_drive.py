@@ -71,6 +71,7 @@ SPANS = [
     (registration, "scan_to_map_voxel"),
     (registration, "scan_to_map"),
     (voxelmap, "lookup_cat"),
+    (knn, "query_cat"),
     (knn, "query"),
     (linalg, "sym3x3_eigh"),
     (imu_fusion, "update_with_pose"),

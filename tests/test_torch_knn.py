@@ -271,6 +271,123 @@ def test_query_on_cuda_tensor_never_takes_the_twin(monkeypatch):
     assert called == ["cuda", "plain"]
 
 
+def _second_grid(pts, mask, cell, table):
+    """A second map for query_cat: the points reversed and shrunk, in a
+    table of another size."""
+    return (np.ascontiguousarray(pts[::-1] * np.float32(0.9)),
+            np.ascontiguousarray(mask[::-1]), cell, max(64, table // 2))
+
+
+@pytest.mark.parametrize("case", _QUERY_CASES)
+def test_query_cat_plain_matches_jax(case):
+    """query_cat_plain over two maps equals two msst_tpu ``knn.query``
+    calls, concatenated, at every case of test_query_matches_jax; the split
+    n_a is not a multiple of any lane group."""
+    pts, mask, table, cell, q, q_mask, k, C, max_sq = _query_case(case)
+    pts_b, mask_b, cell_b, table_b = _second_grid(pts, mask, cell, table)
+    n_a = len(q) // 3 + 1
+    parts = [jknn.query(_jgrid(p, m, c, h), J(qq), J(qm), k=k,
+                        candidates_per_cell=C, max_sqdist=max_sq)
+             for p, m, c, h, qq, qm in (
+                 (pts, mask, cell, table, q[:n_a], q_mask[:n_a]),
+                 (pts_b, mask_b, cell_b, table_b, q[n_a:], q_mask[n_a:]))]
+    w_valid, w_idx, w_d = (np.concatenate([np.asarray(getattr(w, f))
+                                           for w in parts])
+                           for f in ("valid", "idx", "sqdist"))
+    got = tknn.query_cat_plain(_tgrid(pts, mask, cell, table),
+                               _tgrid(pts_b, mask_b, cell_b, table_b), T(q),
+                               T(q_mask), n_a, k=k, candidates_per_cell=C,
+                               max_sqdist=max_sq)
+    g_valid, g_idx, g_d = (got.valid.numpy(), got.idx.numpy(),
+                           got.sqdist.numpy())
+    assert g_idx.dtype == np.int32 and g_idx.shape == (len(q), k)
+    np.testing.assert_array_equal(g_valid, w_valid)
+    np.testing.assert_array_equal(g_idx[w_valid], w_idx[w_valid])
+    np.testing.assert_allclose(g_d[w_valid], w_d[w_valid], atol=SQDIST_ATOL,
+                               rtol=SQDIST_RTOL)
+    found = np.isfinite(w_d)
+    np.testing.assert_array_equal(np.isfinite(g_d), found)
+    np.testing.assert_array_equal(g_idx[~found], w_idx[~found])
+
+
+def test_query_cat_dispatch_equals_two_queries_on_cpu():
+    """On CPU tensors query_cat takes the twin, launches nothing, and gives
+    the two one-map queries' rows bit for bit."""
+    pts, mask, table, cell, q, q_mask, k, C, max_sq = _query_case("table_64")
+    pts_b, mask_b, cell_b, table_b = _second_grid(pts, mask, cell, table)
+    ga = _tgrid(pts, mask, cell, table)
+    gb = _tgrid(pts_b, mask_b, cell_b, table_b)
+    before = tknn.query.launches
+    got = tknn.query_cat(ga, gb, T(q), T(q_mask), 77, k=k,
+                         candidates_per_cell=C)
+    assert tknn.query.launches == before
+    a = tknn.query(ga, T(q[:77]), T(q_mask[:77]), k=k, candidates_per_cell=C)
+    b = tknn.query(gb, T(q[77:]), T(q_mask[77:]), k=k, candidates_per_cell=C)
+    for f in ("idx", "sqdist", "valid"):
+        assert torch.equal(getattr(got, f),
+                           torch.cat([getattr(a, f), getattr(b, f)])), f
+
+
+def test_query_cat_on_cuda_tensor_never_takes_the_twin(monkeypatch):
+    """As for query: only CPU tensors go to ``query_cat_plain``; any other
+    device goes to the kernel launcher (which raises where it cannot
+    launch)."""
+    called = []
+    monkeypatch.setattr(tknn, "query_cat_plain",
+                        lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(tknn, "_query_cat_cuda",
+                        lambda *a, **k: called.append("cuda"))
+
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+    tknn.query_cat(None, None, OnCard(), None, 0)
+    tknn.query_cat(None, None, torch.zeros(1, 3), None, 0)
+    assert called == ["cuda", "plain"]
+
+
+def _launch_args():
+    """A valid call of the kernel launcher, on CPU tensors: each check runs
+    before anything needs the card."""
+    pts, mask, table, cell, q, q_mask, k, C, _ = _query_case("k5_default_inf")
+    g = _tgrid(pts, mask, cell, table)
+    return dict(grid_a=g, grid_b=g, q_xyz=T(q), q_mask=T(q_mask), n_a=50,
+                k=k, candidates_per_cell=C, max_sqdist=np.inf)
+
+
+@pytest.mark.parametrize("fault", ["q_dtype", "grid_dtype", "mask_dtype",
+                                   "non_contiguous", "n_a_below",
+                                   "n_a_above", "k_zero", "k_above",
+                                   "no_candidates", "mask_shape"])
+def test_kernel_launcher_raises_on_what_the_kernel_does_not_take(fault):
+    args = _launch_args()
+    g = args["grid_a"]
+    if fault == "q_dtype":
+        args["q_xyz"] = args["q_xyz"].double()
+    elif fault == "grid_dtype":
+        args["grid_b"] = g._replace(bucket_start=g.bucket_start.long())
+    elif fault == "mask_dtype":
+        args["q_mask"] = args["q_mask"].to(torch.uint8)
+    elif fault == "non_contiguous":
+        args["q_xyz"] = args["q_xyz"].T.contiguous().T
+    elif fault == "n_a_below":
+        args["n_a"] = -1
+    elif fault == "n_a_above":
+        args["n_a"] = args["q_xyz"].shape[0] + 1
+    elif fault == "k_zero":
+        args["k"] = 0
+    elif fault == "k_above":
+        args["k"] = tknn.KERNEL_MAX_K + 1
+    elif fault == "no_candidates":
+        args["candidates_per_cell"] = 0
+    else:
+        args["q_mask"] = args["q_mask"][:-1]
+    before = tknn.query.launches
+    with pytest.raises(ValueError):
+        tknn._query_cat_cuda(**args)
+    assert tknn.query.launches == before
+
+
 # ---------------------------------------------------------------------------
 # voxel_downsample_packed
 # ---------------------------------------------------------------------------

@@ -243,6 +243,39 @@ def test_lookup_finds_member_voxels_on_port_built_map():
     assert bool(hit.found.all())
 
 
+@pytest.mark.parametrize("fault", ["q_dtype", "probe_dtype", "misaligned",
+                                   "table_size", "n_a_below", "n_a_above"])
+def test_kernel_launcher_raises_on_what_the_kernel_does_not_take(fault):
+    """The launcher's checks run before anything needs the card, so on CPU
+    tensors each fault raises and nothing is launched."""
+    pts = RNG.uniform(-4, 4, (600, 3)).astype(np.float32)
+    vm = tvm.build(torch.from_numpy(pts), torch.ones(600, dtype=torch.bool),
+                   1.0, 256, "plane", table_size=512, origin=torch.zeros(3))
+    q = torch.from_numpy(pts[:40].copy())
+    qm = torch.ones(40, dtype=torch.bool)
+    va, vb, n_a = vm, vm, 20
+    if fault == "q_dtype":
+        q = q.double()
+    elif fault == "probe_dtype":
+        vb = vm._replace(probe=vm.probe.double())
+    elif fault == "misaligned":
+        # the same rows one float past a 16-byte boundary
+        flat = torch.zeros(vm.probe.numel() + 1)
+        vb = vm._replace(probe=flat[1:].view(vm.probe.shape))
+        assert vb.probe.data_ptr() % 16 and vb.probe.is_contiguous()
+    elif fault == "table_size":
+        # probe rows that disagree with the bucket table the twin hashes by
+        vb = vm._replace(probe=vm.probe[:256].clone())
+    elif fault == "n_a_below":
+        n_a = -1
+    else:
+        n_a = 41
+    before = tvm.lookup_cat.launches
+    with pytest.raises(ValueError):
+        tvm._lookup_cat_cuda(va, vb, q, qm, n_a)
+    assert tvm.lookup_cat.launches == before
+
+
 # ---------------------------------------------------------------------------
 # scan-to-map Gauss-Newton
 # ---------------------------------------------------------------------------
