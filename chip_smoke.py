@@ -49,11 +49,26 @@ Phases, one line each; any failure exits non-zero:
    in ``_insert_keyframe`` and in each closing attempt.
 5. the port on the CPU and on the card over the first scans of each path
    (24 voxel, 12 knn): the CPU drive within 1 cm of the mean of five
-   drives on the card (one drive on the card is a noisy sample: its
-   scatter-adds add in no fixed order); each drive's gap and the drives'
-   spread are printed.  Then one loop attempt from 4c's final state, on
+   drives on the card; each drive's gap and the drives' spread are
+   printed.  Then one loop attempt from 4c's final state, on
    the card and on a CPU copy: the same outcome and candidate, keyframe
    poses within 1 cm.
+
+6. 4a, 4b and 4c driven again: keyframe count, keyframe poses, loop
+   events and trajectory bit-identical to the first drive (the port's
+   sums add in a fixed order).
+7. the bench drive with max_keyframes=16 per scan-to-map method (7a, 7b):
+   ~30 keyframe evictions each, bench.py's gates, and on the incremental
+   map the moment tables consistent with the stored keyframes.
+8. map_update="rebuild" per vox_source (8a downsampled, 8b direct): the
+   gates, the rebuild's ms per keyframe.  8b's final error is held to
+   msst_tpu's own on that drive (DIRECT_FINAL_GATE_M), which misses
+   bench.py's 0.10 m.
+9. feature_method="exact": the gates, the frontend's ms per scan.
+10. ``python -m msst_torch.models.liosam.demo``'s ``main`` over 40 scans,
+   and ``save_map`` into a temporary directory: three PCDs holding the
+   map's points.
+Each of 6-10 drives the card and fails the run when its check fails.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  --out DIR also writes the per-scan
@@ -63,6 +78,7 @@ times and the result there.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
@@ -70,6 +86,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -105,6 +122,15 @@ GATHER_TIMED = "loop surf K=256 window"   # the case of the kernels line
 RING_SIZES = (512, 1024)
 RING_ITERS = 9
 RING_AGREE_M = 2e-2    # tests/test_graph.py:137 holds CG to dense so
+# keyframe store of phase 7: the bench drive keeps ~46 keyframes, so the
+# oldest is evicted ~30 times
+EVICT_KEYFRAMES = 16
+# final-error gate of phase 8b (map_update="rebuild", vox_source="direct"):
+# msst_tpu's own final error on that drive at 16x1800, 0.15356 m on the CPU
+# (scripts/torch_vs_ref_drive.py --horizon 1800 --packages msst_tpu --set
+# map_update=rebuild --set vox_source=direct).  msst_tpu does not meet
+# bench.py's FINAL_GATE_M in that mode; its drift gate holds as it is.
+DIRECT_FINAL_GATE_M = 0.1536
 
 
 def _card() -> str:
@@ -677,10 +703,21 @@ def _accuracy(traj, data):
             100.0 * float(errs.max()) / max(path_len, 1e-6), path_len)
 
 
-def phase_main_path(tag, method, kernel, data, card):
+def _record(lio, attempts=()):
+    """What phase 6 holds a second drive to, bit for bit: the keyframe
+    poses (their count with them), the loop events (found, current and
+    candidate keyframe of each attempt) and the trajectory."""
+    n = int(lio.state.kf.count)
+    return {"pose6": lio.state.kf.pose6[:n].cpu().numpy(),
+            "events": [(a["found"], a["cur"], a["cand"]) for a in attempts],
+            "traj": lio.trajectory.as_matrices()}
+
+
+def phase_main_path(tag, method, kernel, data, card, records=None):
     """Phase 4: one main path of the port on the card.  Every kernel's
     launch count is set to 0 just before the drive and read just after;
-    `kernel` is the one this path must have launched."""
+    `kernel` is the one this path must have launched.  `records` takes the
+    drive's ``_record`` under `tag`."""
     import torch
 
     from msst_torch.models.liosam import LioSam
@@ -726,6 +763,8 @@ def phase_main_path(tag, method, kernel, data, card):
                              f"Gauss-Newton iterations ({method})")
     traj = lio.trajectory
     max_err, final_err, drift, path_len = _accuracy(traj, data)
+    if records is not None:
+        records[tag] = _record(lio)
     # steady state: drop the dynamic-init boot window and its re-feed
     boot = BOOT_SCANS + 1
     steady = np.asarray(step_ms[boot:])
@@ -761,7 +800,7 @@ def phase_main_path(tag, method, kernel, data, card):
     return res
 
 
-def _loop_drive(tag, what, params, data, card, solvers=False):
+def _loop_drive(tag, what, params, data, card, solvers=False, records=None):
     """One loop-on drive of ``LioSam(params, device="cuda")`` over `data`:
     the kernel launch counters are set to 0 just before it and read just
     after; every loop attempt is timed to the end of its device work, with
@@ -796,6 +835,8 @@ def _loop_drive(tag, what, params, data, card, solvers=False):
             torch.cuda.synchronize()
             launched = {name: fn.launches for name, fn in kernels.items()}
     max_err, final_err, drift, path_len = _accuracy(lio.trajectory, data)
+    if records is not None:
+        records[tag] = _record(lio, attempts)
     steady = np.asarray(step_ms[BOOT_SCANS + 1:])
     in_loop = {name: sum(a["counts"][name] for a in attempts)
                for name in counters}
@@ -849,12 +890,12 @@ def _loop_drive(tag, what, params, data, card, solvers=False):
     return res, lio.state
 
 
-def phase_loop_path(data, card):
+def phase_loop_path(data, card, records=None):
     """Phase 4c: the loop-on main path on the card, bench.py's loop phase
     (bench-voxel's configuration with loop closure on: an attempt every 10
     scans behind the host pre-gate, the dense solver at 256 keyframes)."""
     return _loop_drive("4c", "loop closure on", _params("voxel", loop=True),
-                       data, card)
+                       data, card, records=records)
 
 
 def phase_defaults_path(data, card):
@@ -971,13 +1012,14 @@ def phase_cpu(method, data):
     with the default 8-scan boot, so both re-feed inside the window).
 
     The card is driven N_CARD_DRIVES times and the CPU drive is held
-    against the mean of those trajectories.  One drive on the card is a
-    noisy sample: its scatter-adds (the segment sums) add in no fixed
-    order, and the knn path turns their last bits into millimetres while
-    the map is one keyframe old (neighbours along one lidar ring are
-    collinear, and the normal of a plane through them is set by rounding).
-    Every drive's own gap and the drives' spread about their mean are
-    printed beside the gated number."""
+    against the mean of those trajectories (the limit kept from before the
+    port's sums added in a fixed order, when one drive on the card was a
+    noisy sample); the CPU adds in another order than the card, and the
+    knn path turns the last bits into millimetres while the map is one
+    keyframe old (neighbours along one lidar ring are collinear, and the
+    normal of a plane through them is set by rounding).  Every drive's own
+    gap and the drives' spread about their mean are printed beside the
+    gated number."""
     from msst_torch.models.liosam import LioSam
 
     n = N_CPU_SCANS[method]
@@ -1008,6 +1050,267 @@ def phase_cpu(method, data):
             f"cpu and cuda runs ({method}) differ by {gap:.4f} m")
     return {"cpu_gap_m": gap, "cpu_gap_each_m": each,
             "cuda_spread_m": spread}
+
+
+def _drive_record(params, data):
+    """One drive of ``LioSam(params, device="cuda")`` over `data`, and its
+    ``_record`` (loop attempts included)."""
+    import torch
+
+    from msst_torch.models.liosam import LioSam
+    from msst_torch.utils.profile_drive import watched_attempts
+
+    attempts = []
+    lio = LioSam(params, device="cuda", boot_scans=BOOT_SCANS)
+    with watched_attempts(attempts):
+        for s in data:
+            _feed(lio, s)
+        torch.cuda.synchronize()
+    return _record(lio, attempts)
+
+
+def _repeat_gaps(a, b):
+    """How far two drives' ``_record``s lie apart, and whether they are
+    bit-identical."""
+    n = min(len(a["pose6"]), len(b["pose6"]))
+    m = min(len(a["traj"]), len(b["traj"]))
+    gaps = {
+        "keyframes": [len(a["pose6"]), len(b["pose6"])],
+        "loop_events": [a["events"], b["events"]],
+        "pose6_max_abs_gap": float(np.abs(a["pose6"][:n]
+                                          - b["pose6"][:n]).max()),
+        "trajectory_max_gap_m": float(np.linalg.norm(
+            a["traj"][:m, :3, 3] - b["traj"][:m, :3, 3], axis=1).max()),
+    }
+    gaps["bit_identical"] = (a["pose6"].shape == b["pose6"].shape
+                             and np.array_equal(a["pose6"], b["pose6"])
+                             and a["events"] == b["events"]
+                             and a["traj"].shape == b["traj"].shape
+                             and np.array_equal(a["traj"], b["traj"]))
+    return gaps
+
+
+def phase_repeat(cases, records, card):
+    """Phase 6: each of 4a, 4b and 4c driven once more on the card: the
+    keyframe count, the keyframe poses, the loop events and the trajectory
+    must equal the first drive's bit for bit (the port's sums add in a fixed
+    order).  `cases`: tag -> (params, data)."""
+    res = {}
+    for tag, (params, data) in cases.items():
+        gaps = res[tag] = _repeat_gaps(records[tag],
+                                       _drive_record(params, data))
+        first, second = gaps["loop_events"]
+        print(f"phase 6: {tag} driven again on the card: keyframes "
+              f"{gaps['keyframes']}, loop events {first} then {second}; "
+              f"largest keyframe pose6 gap {gaps['pose6_max_abs_gap']}, "
+              f"trajectory gap {gaps['trajectory_max_gap_m']} m; "
+              f"bit-identical {gaps['bit_identical']} [{card}]", flush=True)
+        if not gaps["bit_identical"]:
+            raise AssertionError(f"the second drive of {tag} differs from "
+                                 f"the first: {gaps}")
+    return res
+
+
+@contextmanager
+def _synced_ms(mod, name, ms):
+    """While the context lasts, each call of mod.name synchronises the
+    device before and after and appends its milliseconds to `ms`."""
+    import torch
+
+    fn = getattr(mod, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        ms.append(1000.0 * (time.perf_counter() - t0))
+        return out
+
+    setattr(mod, name, timed)
+    try:
+        yield ms
+    finally:
+        setattr(mod, name, fn)
+
+
+def _option_drive(tag, what, params, data, card, span=None,
+                  final_gate_m=FINAL_GATE_M):
+    """One drive of the 256-scan bench drive with `params` on the card under
+    bench.py's drift gate and the final-error gate `final_gate_m`; the
+    kernel launch counters are set to 0 just before it and read just after,
+    keyframe evictions counted, and `span` (module, attribute) timed per
+    call with the device synchronised around it.  Returns (result, the
+    LioSam)."""
+    import torch
+
+    from msst_torch.models.liosam import LioSam, mapping
+    from msst_torch.ops import knn, voxelmap
+    from msst_torch.utils.profile_drive import counted_calls
+
+    kernels = {"voxel_lookup_cat": voxelmap.lookup_cat,
+               "knn_query": knn.query}
+    span_ms: list = []
+    lio = LioSam(params, device="cuda", boot_scans=BOOT_SCANS)
+    timing = _synced_ms(*span, span_ms) if span else contextlib.nullcontext()
+    with counted_calls([(mapping, "_evict_oldest_keyframe")]) as calls, \
+            timing:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for s in data:
+            _feed(lio, s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {name: fn.launches for name, fn in kernels.items()}
+    max_err, final_err, drift, path_len = _accuracy(lio.trajectory, data)
+    res = {"what": what, "scans": len(data), "wall_s": wall,
+           "launched": launched,
+           "evictions": calls["mapping._evict_oldest_keyframe"],
+           "keyframes": int(lio.state.kf.count), "max_err_m": max_err,
+           "final_err_m": final_err, "drift_pct_per_m": drift,
+           "path_len_m": path_len}
+    if span:
+        res["span"] = f"{span[0].__name__}.{span[1]}"
+        res["span_calls"] = len(span_ms)
+        res["span_ms_per_call"] = float(np.mean(span_ms)) if span_ms else None
+    print(f"phase {tag}: LioSam cuda, {what}, over {len(data)} scans x "
+          f"{N_SCAN}x{HORIZON}: {res['evictions']} keyframe evictions, "
+          f"{res['keyframes']} keyframes held; launches B1 "
+          f"{launched['voxel_lookup_cat']}, B2 {launched['knn_query']}; "
+          + (f"{res['span']} {res['span_ms_per_call']:.3f} ms per call over "
+             f"{res['span_calls']} calls (synchronised); " if span else "")
+          + f"max err {max_err:.4f} m, final err {final_err:.4f} m, drift "
+          f"{drift:.4f} %/m over {path_len:.1f} m; {wall:.1f} s [{card}]",
+          flush=True)
+    if drift > DRIFT_GATE_PCT or final_err > final_gate_m:
+        raise AssertionError(
+            f"accuracy gate ({what}): drift {drift:.4f} %/m (<= "
+            f"{DRIFT_GATE_PCT}), final err {final_err:.4f} m (<= "
+            f"{final_gate_m})")
+    return res, lio
+
+
+def phase_eviction(method, data, card):
+    """Phase 7: the bench drive with a store of EVICT_KEYFRAMES keyframes, so
+    that the oldest is evicted with marginalization again and again, under
+    bench.py's gates; on the incremental map the moment tables stay
+    consistent with the stored keyframes (tests/test_liosam_incmap.py's
+    checks: every alive cell counts >= 0.5 points, and all of them no more
+    than the stored surf points)."""
+    import dataclasses
+
+    from msst_torch.ops import voxelmap
+
+    p = dataclasses.replace(_params(method), max_keyframes=EVICT_KEYFRAMES)
+    tag = "7a" if method == "voxel" else "7b"
+    res, lio = _option_drive(tag, f"scan2map_method={method}, max_keyframes="
+                             f"{EVICT_KEYFRAMES}", p, data, card)
+    kernel = "voxel_lookup_cat" if method == "voxel" else "knn_query"
+    if res["evictions"] < 10 or res["launched"][kernel] == 0:
+        raise AssertionError(f"the eviction drive ({method}) evicted "
+                             f"{res['evictions']} times and launched "
+                             f"{res['launched']}")
+    if method == "voxel":
+        mom, kf = lio.state.local_map.surf_mom, lio.state.kf
+        alive = mom.key < voxelmap._BIG
+        cnt = mom.cnt[alive]
+        stored = int(kf.surf_mask[:int(kf.count)].sum())
+        res["alive_cells"] = int(alive.sum())
+        res["alive_count_sum"] = float(cnt.sum())
+        res["stored_surf_points"] = stored
+        print(f"        moments: {res['alive_cells']} alive surf cells, "
+              f"least count {float(cnt.min())}, counts sum to "
+              f"{res['alive_count_sum']} of {stored} stored surf points",
+              flush=True)
+        if not (bool((cnt >= 0.5).all()) and float(cnt.sum()) <= stored + 1e-3):
+            raise AssertionError("the moment tables disagree with the "
+                                 "stored keyframes after eviction")
+    return res
+
+
+def phase_rebuild(source, data, card):
+    """Phase 8: the voxel method with map_update="rebuild" (the local map
+    refit from the nearby keyframes at each keyframe) and `source` as its
+    fit input, under bench.py's gates; the rebuild's ms per keyframe.
+
+    vox_source="direct" (the raw keyframe features, no centroid pass) keeps
+    the drift gate, and its final error is held to msst_tpu's own on this
+    drive, DIRECT_FINAL_GATE_M: msst_tpu misses bench.py's 0.10 m in this
+    mode (PERF.md section 6)."""
+    import dataclasses
+
+    from msst_torch.models.liosam import mapping
+
+    p = dataclasses.replace(_params("voxel"), map_update="rebuild",
+                            vox_source=source)
+    tag = "8a" if source == "downsampled" else "8b"
+    res, _ = _option_drive(tag, f"map_update=rebuild, vox_source={source}",
+                           p, data, card,
+                           span=(mapping, "_rebuild_local_map"),
+                           final_gate_m=(DIRECT_FINAL_GATE_M
+                                         if source == "direct"
+                                         else FINAL_GATE_M))
+    if res["launched"]["voxel_lookup_cat"] == 0 or not res["span_calls"]:
+        raise AssertionError(f"the rebuild drive ({source}) launched "
+                             f"{res['launched']}, rebuilt "
+                             f"{res['span_calls']} times")
+    return res
+
+
+def phase_exact_features(data, card):
+    """Phase 9: the voxel method with feature_method="exact" (the
+    reference's greedy corner picks) under bench.py's gates; the frontend's
+    ms per scan."""
+    import dataclasses
+
+    from msst_torch.models.liosam import mapping
+
+    p = dataclasses.replace(_params("voxel"), feature_method="exact")
+    res, _ = _option_drive("9", "feature_method=exact", p, data, card,
+                           span=(mapping, "run_frontend"))
+    if res["launched"]["voxel_lookup_cat"] == 0:
+        raise AssertionError(f"the exact-feature drive launched "
+                             f"{res['launched']}")
+    return res
+
+
+def _pcd_points(path):
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"POINTS"):
+                return int(line.split()[1])
+    raise AssertionError(f"{path}: no POINTS line")
+
+
+def phase_demo(card):
+    """Phase 10: ``python -m msst_torch.models.liosam.demo`` (its ``main``)
+    over 40 scans on the card, then ``save_map`` into a temporary
+    directory: the three PCDs exist and hold the map's points."""
+    import tempfile
+
+    from msst_torch.models.liosam import demo
+
+    t0 = time.perf_counter()
+    lio = demo.main(["--scans", "40"])
+    wall = time.perf_counter() - t0
+    if lio.device.type != "cuda":
+        raise AssertionError(f"the demo ran on {lio.device}")
+    with tempfile.TemporaryDirectory() as d:
+        out = lio.save_map(d)
+        counts = {name: _pcd_points(os.path.join(d, f"{name}.pcd"))
+                  for name in ("corner_map", "surf_map", "global_map")}
+    want = {"corner_map": len(out["corner_map"]),
+            "surf_map": len(out["surf_map"])}
+    want["global_map"] = want["corner_map"] + want["surf_map"]
+    print(f"phase 10: demo.main(--scans 40) on {lio.device}: "
+          f"{int(lio.state.kf.count)} keyframes in {wall:.1f} s; save_map "
+          f"wrote {counts} points, the map holds {want} [{card}]",
+          flush=True)
+    if counts != want or want["surf_map"] == 0:
+        raise AssertionError(f"save_map wrote {counts}, want {want}")
+    return {"points": counts, "wall_s": wall,
+            "keyframes": int(lio.state.kf.count)}
 
 
 def _build_kernels(names):
@@ -1088,19 +1391,31 @@ def main(argv=None) -> int:
     b3 = phase_gather_rows(torch.device("cuda"))
     res = {"card": card, "build_s": build_s, "resource_usage": usage,
            "kernels": [b1, b2, b3]}
+    records = {}
     res["voxel"] = phase_main_path("4a", "voxel", "voxel_lookup_cat", data,
-                                   card)
-    res["knn"] = phase_main_path("4b", "knn", "knn_query", data, card)
-    res["loop"], loop_state = phase_loop_path(loop_data, card)
+                                   card, records)
+    res["knn"] = phase_main_path("4b", "knn", "knn_query", data, card,
+                                 records)
+    res["loop"], loop_state = phase_loop_path(loop_data, card, records)
     res["graph"] = phase_graph_solvers(card)
     res["defaults"] = phase_defaults_path(loop_data, card)
-    del loop_data
     b1["launches"] = res["voxel"]["launches"]
     b2["launches"] = res["knn"]["launches"]
     b3["launches"] = res["loop"]["launched"]["gather_rows"]
     for method in ("voxel", "knn"):
         res[method].update(phase_cpu(method, data))
     res["loop"].update(phase_cpu_loop(loop_state, card))
+    del loop_state
+    res["repeat"] = phase_repeat(
+        {"4a": (_params("voxel"), data), "4b": (_params("knn"), data),
+         "4c": (_params("voxel", loop=True), loop_data)}, records, card)
+    del loop_data, records
+    res["eviction"] = {m: phase_eviction(m, data, card)
+                       for m in ("voxel", "knn")}
+    res["rebuild"] = {s: phase_rebuild(s, data, card)
+                      for s in ("downsampled", "direct")}
+    res["exact_features"] = phase_exact_features(data, card)
+    res["demo"] = phase_demo(card)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

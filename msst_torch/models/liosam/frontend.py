@@ -68,11 +68,9 @@ def run_frontend(scan: ScanInput, p) -> FrontendOutput:
 def _loam_features(ext: ri.ExtractedScan, p) -> FrontendOutput:
     """LOAM corner/surface selection over the packed rings + per-ring
     surface voxel downsample (``featureExtraction.cpp:226-236``)."""
-    if p.feature_method != "nms":
-        raise NotImplementedError(
-            f"feature_method={p.feature_method!r}: only the NMS features are "
-            "ported; the exact greedy variant is ROADMAP item L7")
-    masks = F.extract_features_nms(ext, p.edge_threshold, p.surf_threshold)
+    select = (F.extract_features if p.feature_method == "exact"
+              else F.extract_features_nms)
+    masks = select(ext, p.edge_threshold, p.surf_threshold)
 
     flat_xyz = ext.xyz.reshape(-1, 3)
     flat_attrs = ext.attrs.reshape(flat_xyz.shape[0], -1)

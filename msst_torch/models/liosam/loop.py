@@ -317,12 +317,13 @@ def _add_loop(state: LioState, p: LioParams, cur: Tensor, cand: Tensor,
     cur_pose6 = _rows(kf.pose6, cur.reshape(1))[0]
     cur_time = kf.time.index_select(0, cur.reshape(1).long())[0]
     # the history moved, so the cached local map is stale
-    if p.scan2map_method == "voxel":
+    if mapping._use_incremental(p):
         local_map, baked_pose6, baked = mapping._rebake_local_map(
             kf, cur_pose6[3:], cur_time, p)
         kf = kf._replace(baked_pose6=baked_pose6, baked=baked)
     else:
-        local_map = mapping._rebuild_local_map(kf, cur_pose6[3:], cur_time, p)
+        local_map = mapping._rebuild_local_map(kf, cur_pose6[3:], cur_time, p,
+                                               state.local_map)
     return state._replace(
         kf=kf, graph=graph, n_loop=state.n_loop + 1, local_map=local_map,
         pose6=cur_pose6,

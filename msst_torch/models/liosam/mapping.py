@@ -7,14 +7,14 @@ single-scan path; the reference's ``mapOptmization`` per-scan pipeline,
 * roll/pitch slerp fusion + clamps (``transformUpdate`` :1312-1342),
 * keyframe gate (``saveFrame`` :1354-1379), prior/between/GPS factors
   (:1381-1475), graph solve, pose-history rewrite (``correctPoses``),
+* keyframe eviction with marginalization once the store is full,
 * the local map (``extractCloud`` :899-938): the incremental voxel-feature
-  map of ``scan2map_method="voxel"``, or the rebuilt map clouds and hash
-  grids of ``scan2map_method="knn"``, and the ESKF update.
+  map of ``scan2map_method="voxel"`` or its rebuilt map
+  (``map_update="rebuild"``), or the rebuilt map clouds and hash grids of
+  ``scan2map_method="knn"``, and the ESKF update.
 
 msst_tpu compiles this into one program with ``lax.cond`` branches; here the
-branches are Python ``if``s on flags read back from the device.  Paths the
-port does not take yet raise ``NotImplementedError`` (keyframe eviction at
-capacity; see also ``state.require_ported``).
+branches are Python ``if``s on flags read back from the device.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from ...ops.pointcloud import Cloud, compact
 from . import imu_fusion
 from .frontend import ScanInput, run_frontend
 from .params import LioParams
-from .state import KeyframeStore, LioState, LocalMap, require_ported
+from .state import KeyframeStore, LioState, LocalMap, _empty_local_map
 
 Tensor = torch.Tensor
 
@@ -175,36 +175,52 @@ def _assemble_local_map(kf: KeyframeStore, position: Tensor,
     return corner_map, surf_map
 
 
+def _use_incremental(p: LioParams) -> bool:
+    return p.scan2map_method == "voxel" and p.map_update == "incremental"
+
+
 def _rebuild_local_map(kf: KeyframeStore, position: Tensor, scan_time: Tensor,
-                       p: LioParams) -> LocalMap:
-    """The knn method's local map, rebuilt around a new keyframe: the map
-    clouds and a hash grid over each (cell 1 m, the 5-NN gate's radius); the
-    voxel tables and moments are 8-row placeholders.  (The voxel method's
-    rebuild is ROADMAP item L2.)"""
-    dev = position.device
+                       p: LioParams, prev: Optional[LocalMap] = None
+                       ) -> LocalMap:
+    """The local map rebuilt around a new keyframe: every map of the knn
+    method, and of the voxel method with ``map_update="rebuild"``.
+
+    voxel: the voxel-feature tables fit from the nearby keyframes'
+    features, centroid-downsampled first (``vox_source="downsampled"``,
+    the reference's ``extractCloud`` :899-938) or as gathered
+    (``"direct"``); the flat clouds stay 8-row placeholders and there are
+    no hash grids.  knn: the map clouds and a hash grid over each (cell
+    1 m, the 5-NN gate's radius).  The placeholders (and the unused moment
+    tables) are `prev`'s, the map this one replaces (an empty map's if
+    None), so that they are built once."""
+    if prev is None:
+        prev = _empty_local_map(p, position.device)
+    if p.scan2map_method == "voxel":
+        if p.vox_source == "direct":
+            vc, vs = _gather_nearby_world(kf, position, scan_time, p)
+        else:
+            vc, vs = _assemble_local_map(kf, position, scan_time, p)
+        return prev._replace(
+            corner_vox=voxelmap.build(
+                vc.xyz, vc.mask, p.vox_corner_leaf, p.vox_corner_cap, "line",
+                table_size=2 * p.vox_corner_cap, origin=position,
+                plane_min_spread=p.vox_plane_min_spread),
+            surf_vox=voxelmap.build(
+                vs.xyz, vs.mask, p.vox_surf_leaf, p.vox_surf_cap, "plane",
+                table_size=2 * p.vox_surf_cap, origin=position,
+                plane_min_spread=p.vox_plane_min_spread),
+            anchor=position,
+            valid=torch.tensor(True, device=position.device))
     corner_map, surf_map = _assemble_local_map(kf, position, scan_time, p)
-
-    def vox(leaf, kind):
-        return voxelmap.build(torch.zeros((8, 3), device=dev),
-                              torch.zeros(8, dtype=torch.bool, device=dev),
-                              leaf, 8, kind,
-                              origin=torch.zeros(3, device=dev), table_size=16)
-
-    return LocalMap(
+    return prev._replace(
         corner_xyz=corner_map.xyz, corner_mask=corner_map.mask,
         surf_xyz=surf_map.xyz, surf_mask=surf_map.mask,
         corner_grid=knn.build(corner_map.xyz, corner_map.mask, 1.0,
                               p.knn_table_size),
         surf_grid=knn.build(surf_map.xyz, surf_map.mask, 1.0,
                             p.knn_table_size),
-        corner_vox=vox(p.vox_corner_leaf, "line"),
-        surf_vox=vox(p.vox_surf_leaf, "plane"),
-        corner_mom=voxelmap.empty_moments(8, dev),
-        surf_mom=voxelmap.empty_moments(8, dev),
         anchor=position,
-        valid=torch.tensor(True, device=dev),
-        mom_dropped=torch.zeros(2, dtype=torch.int32, device=dev),
-    )
+        valid=torch.tensor(True, device=position.device))
 
 
 def _group_bits(coarse: float, fine: float) -> Optional[int]:
@@ -298,13 +314,17 @@ def _kf_moments(kf: KeyframeStore, slot: int, pose6: Tensor, anchor: Tensor,
 
 def _map_telemetry(lm: LocalMap, p: LioParams) -> tuple[Tensor, Tensor]:
     """(occupancy (2,) in [0, 1], dropped (2,) int32) of the local map's
-    capped structures: the moment tables of the voxel method, the flat map
-    clouds of the knn method."""
-    if p.scan2map_method == "voxel":
+    capped structures: the moment tables of the incremental map, the voxel
+    feature tables of the voxel method's rebuild map, the flat map clouds of
+    the knn method."""
+    if _use_incremental(p):
         occ = torch.stack([
             torch.sum(lm.corner_mom.key < voxelmap._BIG) / p.map_corner_cap,
             torch.sum(lm.surf_mom.key < voxelmap._BIG) / p.map_surf_cap,
         ])
+    elif p.scan2map_method == "voxel":
+        occ = torch.stack([torch.mean(lm.corner_vox.mask.to(torch.float32)),
+                           torch.mean(lm.surf_vox.mask.to(torch.float32))])
     else:
         occ = torch.stack([torch.mean(lm.corner_mask.to(torch.float32)),
                            torch.mean(lm.surf_mask.to(torch.float32))])
@@ -325,16 +345,122 @@ def _graph_optimize(graph, p: LioParams, free_mask=None, iters=2):
 # ---------------------------------------------------------------------------
 
 
+def _evict_oldest_keyframe(state: LioState, p: LioParams) -> LioState:
+    """Ring-buffer eviction with marginalization: drop the oldest keyframe
+    and fold its information into a prior on the new oldest pose (the
+    reference resets its preintegration graph every 100 keys and carries
+    the marginals forward as priors, ``imuPreintegration.cpp:320-347``).
+
+    * incremental map: the evicted keyframe's baked moments are subtracted
+      (``scale_moments(-1)`` then ``merge_moments``, whose ``min_cnt``
+      removes the emptied cells); the insert that follows refits features;
+    * the Schur complement of slot 0's factors (its prior, the 0->1 chain
+      factor or a reversed 1->0 one, GPS factors on slot 0) onto slot 1,
+      diagonalized into the new prior of row 0;
+    * the store and the graph shift down one slot; loop factors on slot 0
+      are reparented onto slot 1 (``rel01^-1 Z`` / ``Z rel01``), the
+      collapsed self-factor is masked, the chain region rolls so factor
+      i -> i+1 stays at row i, and GPS indices shift (below 0: masked)."""
+    kf, graph = state.kf, state.graph
+    K = kf.pose6.shape[0]
+    dev = kf.pose6.device
+
+    lm = state.local_map
+    if _use_incremental(p) and bool(kf.baked[0] & lm.valid):
+        cmom, smom = _kf_moments(kf, 0, kf.baked_pose6[0], lm.anchor, p)
+        ck, sk = _moment_group_bits(p)
+        cmerged, _ = voxelmap.merge_moments(
+            lm.corner_mom, voxelmap.scale_moments(cmom, -1.0),
+            p.map_corner_cap, group_bits=ck or 0)
+        smerged, _ = voxelmap.merge_moments(
+            lm.surf_mom, voxelmap.scale_moments(smom, -1.0),
+            p.map_surf_cap, group_bits=sk or 0)
+        state = state._replace(local_map=lm._replace(corner_mom=cmerged,
+                                                     surf_mom=smerged))
+
+    # --- Schur complement H11' = H11 - H10 H00^-1 H01 over whitened blocks
+    pr, b, gps = graph.priors, graph.betweens, graph.gps
+    _, Jp = graph_ops._prior_terms(graph.poses, pr)
+    _, Ji, Jj = graph_ops._between_terms(graph.poses, b)
+    _, Jg = graph_ops._gps_terms(graph.poses, gps)
+    wp = (pr.mask & (pr.idx == 0)).to(torch.float32)
+    wb = ((b.i == 0) & (b.j == 1) & b.mask).to(torch.float32)
+    wb2 = ((b.i == 1) & (b.j == 0) & b.mask).to(torch.float32)   # reversed
+    wg = (gps.mask & (gps.idx == 0)).to(torch.float32)
+
+    def info(Ja, w, Jb):
+        return torch.einsum("nri,n,nrj->ij", Ja, w, Jb)
+
+    H00 = (info(Jp, wp, Jp) + info(Ji, wb, Ji) + info(Jj, wb2, Jj)
+           + info(Jg, wg, Jg))
+    H01 = info(Ji, wb, Jj) + info(Jj, wb2, Ji)
+    H11 = info(Jj, wb, Jj) + info(Ji, wb2, Ji)
+    M = H11 - H01.T @ torch.linalg.solve(
+        H00 + 1e-6 * torch.eye(6, device=dev), H01)
+    marg_sqrt_info = torch.sqrt(torch.clamp(torch.diagonal(M), 1e-6, 1e8))
+
+    # --- shift everything down one slot (slot i = the i-th oldest)
+    def roll1(x):
+        return torch.roll(x, -1, dims=0)
+
+    kf = kf._replace(
+        pose6=roll1(kf.pose6), time=roll1(kf.time),
+        corner_xyz=roll1(kf.corner_xyz), corner_mask=roll1(kf.corner_mask),
+        surf_xyz=roll1(kf.surf_xyz), surf_mask=roll1(kf.surf_mask),
+        count=torch.tensor(K - 1, dtype=torch.int32, device=dev),
+        baked_pose6=roll1(kf.baked_pose6),
+        baked=_set(roll1(kf.baked), K - 1, False),
+    )
+    poses = se3.Pose(roll1(graph.poses.q), roll1(graph.poses.t))
+    pr = pr._replace(
+        idx=_set(pr.idx, 0, 0),
+        meas=se3.Pose(_set(pr.meas.q, 0, poses.q[0]),
+                      _set(pr.meas.t, 0, poses.t[0])),
+        sqrt_info=_set(pr.sqrt_info, 0, marg_sqrt_info),
+        mask=_set(pr.mask, 0, True))
+
+    # loop factors anchored on pose 0 move to pose 1: Z_1j = rel01^-1 Z_0j,
+    # Z_i1 = Z_i0 rel01, exact at the linearization point
+    B = b.i.shape[0]
+    rel01 = se3.Pose(graph.poses.q[0], graph.poses.t[0]).between(
+        se3.Pose(graph.poses.q[1], graph.poses.t[1]))
+    rel01b = se3.Pose(rel01.q.expand(B, 4), rel01.t.expand(B, 3))
+    m_i = rel01b.inverse().compose(b.meas)
+    m_j = b.meas.compose(rel01b)
+    re_i, re_j = (b.i == 0)[:, None], (b.j == 0)[:, None]
+    meas = se3.Pose(
+        torch.where(re_i, m_i.q, torch.where(re_j, m_j.q, b.meas.q)),
+        torch.where(re_i, m_i.t, torch.where(re_j, m_j.t, b.meas.t)))
+    bi = torch.where(b.i == 0, 1, b.i)
+    bj = torch.where(b.j == 0, 1, b.j)
+    keep = b.mask & (bi != bj)
+    chain = K - 1   # rows [0, K-1) hold the odometry chain
+
+    def roll_chain(x):
+        return torch.cat([torch.roll(x[:chain], -1, dims=0), x[chain:]])
+
+    b = graph_ops.BetweenFactor(
+        i=roll_chain(bi - 1), j=roll_chain(bj - 1),
+        meas=se3.Pose(roll_chain(meas.q), roll_chain(meas.t)),
+        sqrt_info=roll_chain(b.sqrt_info), mask=roll_chain(keep))
+    # a GPS factor of the evicted pose is masked; it (and every unused row)
+    # points at pose 0, so that no index leaves the store however often the
+    # ring turns (msst_tpu's gathers clamp its negative indices instead)
+    gps = gps._replace(idx=torch.where(gps.idx >= 1, gps.idx - 1, 0),
+                       mask=gps.mask & (gps.idx >= 1))
+    graph = graph._replace(poses=poses, priors=pr, betweens=b, gps=gps)
+    return state._replace(kf=kf, graph=graph)
+
+
 def _insert_keyframe(state: LioState, pose6: Tensor, scan_time: Tensor,
                      corner: Cloud, surf: Cloud, ps: "PreparedScan",
                      p: LioParams, degenerate: Tensor) -> LioState:
     K = state.kf.pose6.shape[0]
     slot = int(state.kf.count)
     if slot >= K:
-        raise NotImplementedError(
-            f"keyframe store full ({K} keyframes): eviction with "
-            "marginalization is not ported yet (ROADMAP item L1); raise "
-            "max_keyframes")
+        # at capacity: evict the oldest keyframe with marginalization
+        state = _evict_oldest_keyframe(state, p)
+        slot = K - 1
     dev = pose6.device
     kf, graph = state.kf, state.graph
     pose = se3.Pose.from_vec6(pose6)
@@ -416,9 +542,9 @@ def _insert_keyframe(state: LioState, pose6: Tensor, scan_time: Tensor,
     kf = kf._replace(pose6=torch.where(kf.mask[:, None], opt6, kf.pose6))
     pos = kf.pose6[slot][3:]
 
-    if p.scan2map_method != "voxel":
+    if not _use_incremental(p):
         # rebuild the cached local map around the (optimized) new keyframe
-        local_map = _rebuild_local_map(kf, pos, scan_time, p)
+        local_map = _rebuild_local_map(kf, pos, scan_time, p, state.local_map)
         return state._replace(kf=kf, graph=graph, n_gps=n_gps,
                               local_map=local_map, pose6=kf.pose6[slot])
 
@@ -529,7 +655,6 @@ def prepare_scan(inp: StepInput, p: LioParams) -> PreparedScan:
 
 def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
     """The state-dependent estimator step over a prepared scan."""
-    require_ported(p)
     dev = ps.scan_start.device
     lm = state.local_map
     enough = (ps.n_corner > p.edge_feature_min_valid_num) & (

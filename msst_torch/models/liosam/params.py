@@ -2,10 +2,11 @@
 ``msst_tpu.models.liosam.params`` (a test holds the two equal).
 
 Mirrors the reference's ``config/params.yaml`` (``include/utility.h:63-250``).
-Some fields only steer paths of msst_tpu that the port does not take yet
-(windowed uploads, Pallas routing); they stay so
-that one parameter object describes both packages.  Paths the port does not
-take raise ``NotImplementedError`` where they are selected.
+Some fields only steer paths of msst_tpu that the port does not take
+(windowed uploads, Pallas routing); they stay so that one parameter object
+describes both packages.  The one path the port does not take yet, windowed
+dispatch (``LioSam(window > 1)``), raises ``NotImplementedError`` where it
+is selected.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ class LioParams:
 
     # --- LOAM thresholds (params.yaml:60-64)
     edge_threshold: float = 1.0
-    feature_method: str = "nms"   # "nms" (ported) | "exact" (not yet)
+    feature_method: str = "nms"   # "nms" | "exact" (the greedy picks)
     surf_threshold: float = 0.1
     edge_feature_min_valid_num: int = 10
     surf_feature_min_valid_num: int = 100
@@ -83,9 +84,11 @@ class LioParams:
     # skip the keyframe graph solve while only the prior + odometry chain
     # exist (the graph is then at its optimum by construction)
     graph_lazy_solve: bool = True
-    vox_source: str = "downsampled"  # rebuild-mode fit input (not ported)
-    # local-map maintenance of the voxel method: "incremental" (ported) |
-    # "rebuild" (not yet); the knn method always rebuilds its map clouds
+    # rebuild-mode fit input: "downsampled" (centroids first) | "direct"
+    vox_source: str = "downsampled"
+    # local-map maintenance of the voxel method: "incremental" (moments
+    # merged per keyframe) | "rebuild" (refit at each keyframe); the knn
+    # method always rebuilds its map clouds
     map_update: str = "incremental"
     map_anchor_radius: float = 40.0   # re-bake beyond this from the anchor
     map_stale_tolerance: float = 0.2  # re-bake when a baked pose moved more

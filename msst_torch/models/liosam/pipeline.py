@@ -2,7 +2,8 @@
 ``msst_tpu.models.liosam.pipeline.LioSam`` at window=1): pad raw sensor
 arrays to the static shapes, thread the state through the odometry step on
 the chosen device, run the loop-closure program at its own lower rate, and
-collect the trajectory.
+collect the trajectory; export the map (``save_map``) and the IMU-rate pose
+(``imu_rate_pose``).
 
 Not ported yet, and refused where selected: windowed dispatch (window > 1,
 ROADMAP item L4)."""
@@ -10,13 +11,19 @@ ROADMAP item L4)."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ...ops import imu as imu_ops
 from ...ops import se3
+from ...ops.pointcloud import Cloud
+from ...ops.voxel import voxel_downsample
+from ...utils.io_pcd import write_pcd
 from .loop import loop_closure_step
 from .mapping import odometry_step_packed
 from .params import LioParams
@@ -24,9 +31,6 @@ from .state import LioState, init_state
 
 _SENSOR_KEYS = ("imu_t", "imu_gyro", "imu_acc", "imu_rpy", "gps_xyz",
                 "gps_sigma")
-# poses and map telemetry are copied to the host in batches of this many
-# scans (one copy each, not one per scan)
-_READBACK_INTERVAL = 8
 
 
 @dataclasses.dataclass
@@ -37,6 +41,22 @@ class Trajectory:
     def as_matrices(self) -> np.ndarray:
         return np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))
 
+    def ate_rmse(self, gt: np.ndarray, align: bool = True) -> float:
+        """Absolute trajectory error against ground-truth positions (N, 3),
+        Umeyama-aligned (rotation and translation) like the standard
+        KITTI/TUM evaluators."""
+        est = self.as_matrices()[:, :3, 3]
+        n = min(len(est), len(gt))
+        est, gt = est[:n], gt[:n]
+        if align and n >= 3:
+            mu_e, mu_g = est.mean(0), gt.mean(0)
+            H = (est - mu_e).T @ (gt - mu_g)
+            U, _, Vt = np.linalg.svd(H)
+            d = np.sign(np.linalg.det(Vt.T @ U.T))
+            R = Vt.T @ np.diag([1.0, 1.0, d]) @ U.T
+            est = (est - mu_e) @ R.T + mu_g
+        return float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
+
 
 class LioSam:
     """Tightly-coupled LiDAR-inertial odometry, one step per scan on
@@ -45,7 +65,8 @@ class LioSam:
     CPU as their plain twins)."""
 
     def __init__(self, params: Optional[LioParams] = None, device="cuda",
-                 window: int = 1, boot_scans: int = 8):
+                 window: int = 1, boot_scans: int = 8,
+                 readback_interval: Optional[int] = None):
         self.p = params or LioParams()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -77,6 +98,11 @@ class LioSam:
         # device times are float32 offsets from the first received stamp
         # (absolute epoch stamps would collapse every dt in float32)
         self._epoch: Optional[float] = None
+        # poses and map telemetry are copied to the host in batches of this
+        # many scans (one copy each, not one per scan)
+        self._readback_interval = max(
+            1, max(8, 4 * window) if readback_interval is None
+            else readback_interval)
         self._pending: list = []  # (time, pose_matrix, occupancy, dropped)
         self._pending_loops: list = []  # device `found` flags, read lazily
         # a closed loop rewrote keyframe history: the recorded trajectory is
@@ -87,6 +113,13 @@ class LioSam:
         # and the cumulative overflow-dropped cell count
         self.map_health = {"max_occupancy": 0.0, "dropped_cells": 0}
         self._overflow_warned = False
+        # host seconds per stage (pack, flush_get, resync, loop_dispatch),
+        # summed over the run
+        self.timings: dict = {}
+
+    def _acct(self, key, t0):
+        self.timings[key] = self.timings.get(key, 0.0) + (
+            time.perf_counter() - t0)
 
     # -- input assembly -----------------------------------------------------
 
@@ -168,11 +201,14 @@ class LioSam:
         gps_sigma keyword arrays; other keys are ignored); returns the
         StepOutput."""
         sensors = {k: v for k, v in sensors.items() if k in _SENSOR_KEYS}
+        t0 = time.perf_counter()
         points, aux = self._make_input_np(xyz, ring, time_rel, scan_start,
                                           **sensors)
-        self.state, out = odometry_step_packed(
-            self.state, torch.from_numpy(points).to(self.device),
-            torch.from_numpy(aux).to(self.device), self.p)
+        points = torch.from_numpy(points).to(self.device)
+        aux = torch.from_numpy(aux).to(self.device)
+        self._acct("pack", t0)
+        self.state, out = odometry_step_packed(self.state, points, aux,
+                                               self.p)
         self._last_scan_time = float(scan_start)
         self._scan_count += 1
         self._pending.append((scan_start, out.pose_matrix,
@@ -186,7 +222,7 @@ class LioSam:
                 res = self._bootstrap_refeed()
                 return res if res is not None else out
 
-        if len(self._pending) >= _READBACK_INTERVAL:
+        if len(self._pending) >= self._readback_interval:
             self._flush_pending()
         if self.loop_enabled and self._scan_count % self._loop_every == 0:
             self._try_loop_closure()
@@ -230,7 +266,9 @@ class LioSam:
         marks the trajectory for a resync."""
         if not self._loop_plausible():
             return
+        t0 = time.perf_counter()
         self.state, loop = loop_closure_step(self.state, self.p)
+        self._acct("loop_dispatch", t0)
         self._pending_loops.append(loop.found)
 
     def _loop_plausible(self) -> bool:
@@ -269,15 +307,18 @@ class LioSam:
         each, then check for divergence (reinitialize on a non-finite
         pose)."""
         loops, self._pending_loops = self._pending_loops, []
+        t0 = time.perf_counter()
         if loops and bool(torch.stack(loops).any()):
             self._resync_needed = True
         if not self._pending:
+            self._acct("flush_get", t0)
             return
         pending, self._pending = self._pending, []
         times = [t for t, *_ in pending]
         mats = torch.stack([m for _, m, _, _ in pending]).cpu().numpy()
         occ = torch.stack([o for _, _, o, _ in pending]).cpu().numpy()
         drop = torch.stack([d for _, _, _, d in pending]).cpu().numpy()
+        self._acct("flush_get", t0)
         self._update_map_health(occ, drop)
         if not np.isfinite(mats).all():
             warnings.warn("odometry diverged (non-finite pose); reinitializing")
@@ -296,6 +337,7 @@ class LioSam:
     def _resync_trajectory(self):
         """Rewrite the recorded poses of the keyframe scans from the
         optimized keyframe store (copied to the host once)."""
+        t0 = time.perf_counter()
         self._resync_needed = False
         kf = self.state.kf
         n = int(kf.count)
@@ -317,6 +359,7 @@ class LioSam:
                     best, best_dt = int(order[k]), abs(sorted_t[k] - t)
             if best >= 0:
                 self._trajectory.poses[best] = m
+        self._acct("resync", t0)
 
     def _update_map_health(self, occ, drop):
         """Fold flushed telemetry into map_health; warn once on saturation
@@ -345,3 +388,69 @@ class LioSam:
         self._flush_pending()
         if self._resync_needed:
             self._resync_trajectory()
+
+    def save_map(self, directory: Optional[str] = None,
+                 resolution: float = 0.0) -> dict:
+        """Terminal map export (the ``save_map`` service,
+        ``mapOptmization.cpp:355-419``): returns a dict of numpy arrays
+        (trajectory pose6 and times of the keyframes, their corner and surf
+        features in the map frame) and, if `directory` is given, writes
+        trajectory.txt and the corner, surf and global PCDs (the first two
+        voxel-downsampled to `resolution` when it is > 0, on the device)."""
+        self.flush()
+        kf = self.state.kf
+        n = int(kf.count)
+        pose6 = kf.pose6[:n].cpu().numpy()
+        cx, cm = kf.corner_xyz[:n].cpu().numpy(), kf.corner_mask[:n].cpu().numpy()
+        sx, sm = kf.surf_xyz[:n].cpu().numpy(), kf.surf_mask[:n].cpu().numpy()
+        out = {"trajectory": pose6,
+               "times": kf.time[:n].cpu().numpy().astype(np.float64)
+               + (self._epoch or 0.0)}
+        # in float64, as msst_tpu rotates them, so that the PCDs match
+        R = se3.rpy_to_matrix(torch.from_numpy(pose6).double()[:, :3])
+        R, t = R.float().numpy(), pose6[:, None, 3:]
+        out["corner_map"] = (np.einsum("kij,kpj->kpi", R, cx) + t)[cm]
+        out["surf_map"] = (np.einsum("kij,kpj->kpi", R, sx) + t)[sm]
+        if directory is not None:
+            os.makedirs(directory, exist_ok=True)
+            np.savetxt(os.path.join(directory, "trajectory.txt"),
+                       np.concatenate([out["times"][:, None],
+                                       out["trajectory"]], axis=1),
+                       header="time roll pitch yaw x y z")
+            for name in ("corner_map", "surf_map"):
+                pts = out[name]
+                if resolution > 0 and len(pts):
+                    c = voxel_downsample(Cloud.create(
+                        torch.from_numpy(np.ascontiguousarray(pts)).to(
+                            self.device)), resolution)
+                    pts = c.xyz[c.mask].cpu().numpy()
+                write_pcd(os.path.join(directory, f"{name}.pcd"), pts)
+            write_pcd(os.path.join(directory, "global_map.pcd"),
+                      np.concatenate([out["corner_map"], out["surf_map"]]))
+        return out
+
+    def imu_rate_pose(self, imu_t, imu_gyro, imu_acc):
+        """The latest optimized state composed with the IMU increments since
+        the last scan: the smooth high-rate ``odometry/imu`` output (the
+        reference's TransformFusion, ``imuPreintegration.cpp:23-154``).
+        Returns (se3.Pose on the device, velocity as numpy (3,))."""
+        fs = self.state.filter
+        T = self.p.imu_window
+        t = np.asarray(imu_t, np.float64)[-T:]
+        epoch = (self._epoch if self._epoch is not None
+                 else t[0] if len(t) else 0.0)
+        t = (t - epoch).astype(np.float32)
+        g = np.asarray(imu_gyro, np.float32)[-T:]
+        a = np.asarray(imu_acc, np.float32)[-T:]
+        k = len(t)
+        pad = T - k
+
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        pre = imu_ops.preintegrate(
+            dev(np.pad(t, (0, pad))), dev(np.pad(g, ((0, pad), (0, 0)))),
+            dev(np.pad(a, ((0, pad), (0, 0)))), dev(np.arange(T) < k),
+            fs.bias, self.p.imu_params)
+        nav = imu_ops.predict(fs.nav, pre, fs.bias, fs.bias, self.p.imu_params)
+        return se3.Pose(nav.q, nav.p), nav.v.cpu().numpy()

@@ -22,15 +22,6 @@ from .params import LioParams
 Tensor = torch.Tensor
 
 
-def require_ported(p: LioParams) -> None:
-    """Raise for parameter choices whose paths the port does not take yet
-    (the ROADMAP items name them)."""
-    if p.scan2map_method == "voxel" and p.map_update != "incremental":
-        raise NotImplementedError(
-            f"map_update={p.map_update!r}: the rebuild local map of the "
-            "voxel method is not ported yet (ROADMAP item L2)")
-
-
 class KeyframeStore(NamedTuple):
     pose6: Tensor        # (K, 6) roll,pitch,yaw,x,y,z in map frame
     time: Tensor         # (K,) scan timestamps
@@ -57,10 +48,11 @@ class LocalMap(NamedTuple):
     """Cached scan-matching map, rebuilt when a keyframe is inserted.
 
     On the voxel path the voxel-feature tables are the map: the flat clouds
-    are 8-row placeholders and the knn hash grids are None.  On the knn path
-    the flat clouds (map_corner_cap / map_surf_cap rows) and their hash
-    grids are the map, and the voxel tables and moments are 8-row
-    placeholders."""
+    are 8-row placeholders and the knn hash grids are None; the moment
+    tables hold the incremental map (8-row placeholders with
+    ``map_update="rebuild"``).  On the knn path the flat clouds
+    (map_corner_cap / map_surf_cap rows) and their hash grids are the map,
+    and the voxel tables and moments are 8-row placeholders."""
 
     corner_xyz: Tensor
     corner_mask: Tensor
@@ -93,6 +85,7 @@ class LioState(NamedTuple):
 
 def _empty_local_map(p: LioParams, device) -> LocalMap:
     use_vox = p.scan2map_method == "voxel"
+    use_inc = use_vox and p.map_update == "incremental"
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -116,9 +109,9 @@ def _empty_local_map(p: LioParams, device) -> LocalMap:
         corner_grid=grid(p.map_corner_cap), surf_grid=grid(p.map_surf_cap),
         corner_vox=vox(p.vox_corner_cap, p.vox_corner_leaf, "line"),
         surf_vox=vox(p.vox_surf_cap, p.vox_surf_leaf, "plane"),
-        corner_mom=voxelmap.empty_moments(p.map_corner_cap if use_vox else 8,
+        corner_mom=voxelmap.empty_moments(p.map_corner_cap if use_inc else 8,
                                           device),
-        surf_mom=voxelmap.empty_moments(p.map_surf_cap if use_vox else 8,
+        surf_mom=voxelmap.empty_moments(p.map_surf_cap if use_inc else 8,
                                         device),
         anchor=zeros(3),
         valid=torch.tensor(False, device=device),
@@ -127,7 +120,6 @@ def _empty_local_map(p: LioParams, device) -> LocalMap:
 
 
 def init_state(p: LioParams, device) -> LioState:
-    require_ported(p)
     K = p.max_keyframes
 
     def zeros(*shape, dtype=torch.float32):

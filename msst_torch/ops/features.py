@@ -1,11 +1,12 @@
-"""LOAM edge/planar feature extraction, non-max-suppression variant (port
-of ``msst_tpu.ops.features.extract_features_nms``; the reference's
-``featureExtraction`` stage).
+"""LOAM edge/planar feature extraction (port of ``msst_tpu.ops.features``;
+the reference's ``featureExtraction`` stage): the non-max-suppression
+variant ``extract_features_nms`` (the default) and the reference's greedy
+picks ``extract_features``.
 
 * curvature = square of the 11-tap range stencil (``calculateSmoothness``
   :81-101)
 * occlusion and parallel-beam rejection (``markOccludedPoints`` :103-139)
-* corners: candidates above ``edge_threshold`` that are maxima over +-5
+* corners (NMS): candidates above ``edge_threshold`` that are maxima over +-5
   packed neighbours, capped at the 20 largest per ring x 6 sectors; every
   other sector point is a surface candidate (``extractFeatures`` :141-238)
 """
@@ -110,4 +111,67 @@ def extract_features_nms(scan: ExtractedScan, edge_threshold: float = 1.0,
 
     in_sector = torch.any(sec_masks, dim=1)
     surface = in_sector & ~corner & (pos < scan.count[:, None])
+    return FeatureMasks(corner, surface)
+
+
+def extract_features(scan: ExtractedScan, edge_threshold: float = 1.0,
+                     surf_threshold: float = 0.1) -> FeatureMasks:
+    """The reference's greedy corner picks (``extractFeatures`` :141-238),
+    all rings at once.
+
+    Per ring, sector by sector: up to 20 times, the largest unpicked
+    candidate above ``edge_threshold`` becomes a corner (the first column
+    among equals) and it and up to 5 packed neighbours each side are marked
+    picked, a side stopping at a column gap > 10; then the sector's flat
+    points (below ``surf_threshold``) and up to 5 neighbours each side,
+    across gaps <= 10, are marked picked.  The picks of each sector see
+    those of the sectors before it, so the sector and pick order is the
+    contract: the loops run over sectors and picks, each step over every
+    ring."""
+    curv, valid = curvature(scan)
+    occluded = mark_occluded(scan)
+    n_scan, h = scan.rng.shape
+    dev = curv.device
+    pos = torch.arange(h, device=dev)[None, :]
+    sp, ep = _sector_bounds(scan.count)
+    col = scan.col
+    # gap[:, i]: columns i-1 and i lie <= 10 apart (i in [1, h)); False at
+    # 0 and at h, so that a suppression walk stops at either end
+    near = torch.abs(col[:, 1:] - col[:, :-1]) <= 10
+    no = torch.zeros((n_scan, 1), dtype=torch.bool, device=dev)
+    gap = torch.cat([no, near, no], dim=1)
+    # the flat spread's gaps, as the reference rolls them (wrapping)
+    gap_roll = torch.abs(col - torch.roll(col, 1, dims=1)) <= 10
+    steps = torch.arange(1, 6, device=dev)
+    # forward step l lands on ind + l (gap at ind + l); backward on ind - l
+    # (gap at ind - l + 1)
+    walk = torch.cat([steps, 1 - steps])[None, :]
+    edge = valid & (curv > edge_threshold)
+    flat_pt = valid & (curv < surf_threshold)
+
+    picked = occluded | ~valid
+    corner = torch.zeros_like(picked)
+    covered = torch.zeros_like(picked)
+    for j in range(N_SECTORS):
+        in_sec = ((pos >= sp[:, j:j + 1]) & (pos <= ep[:, j:j + 1])
+                  & (sp[:, j:j + 1] < ep[:, j:j + 1]))
+        for _ in range(MAX_CORNERS_PER_SECTOR):
+            c = torch.where(in_sec & ~picked & edge, curv, -math.inf)
+            best, ind = torch.max(c, dim=1, keepdim=True)
+            ok = best > -math.inf
+            on = torch.gather(gap, 1, torch.clamp(ind + walk, 0, h))
+            n_fwd = torch.sum(torch.cumprod(on[:, :5].to(torch.int32), 1),
+                              dim=1, keepdim=True)
+            n_bwd = torch.sum(torch.cumprod(on[:, 5:].to(torch.int32), 1),
+                              dim=1, keepdim=True)
+            picked = picked | (ok & (pos >= ind - n_bwd) & (pos <= ind + n_fwd))
+            corner = corner | (ok & (pos == ind))
+        spread = in_sec & ~picked & flat_pt
+        for _ in range(5):
+            spread = (spread | (torch.roll(spread, 1, dims=1) & gap_roll)
+                      | (torch.roll(spread, -1, dims=1)
+                         & torch.roll(gap_roll, -1, dims=1)))
+        picked = picked | spread
+        covered = covered | in_sec
+    surface = covered & ~corner & (pos < scan.count[:, None])
     return FeatureMasks(corner, surface)

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
-from . import se3
+from . import segments, se3
 from .se3 import Pose
 
 Tensor = torch.Tensor
@@ -141,45 +141,62 @@ def _gps_terms(poses: Pose, f: GpsFactor):
     return r * w, J * w[:, :, None]
 
 
-def _assemble_dense(graph: PoseGraph, free_mask: Tensor):
-    """Dense H (6K, 6K), g (6K) from all factors; fixed poses contribute as
-    constants (their Jacobian blocks are zeroed)."""
+def _fixed_scatter(idx: Tensor, n: int):
+    """A function summing rows vals (N, ...) into n slots by idx (N,): each
+    slot's rows are added in their input order, as a sequential scatter-add
+    adds them, and in that order on the card too (where ``index_add_``
+    adds in no fixed order).  The stable sort of idx is made once, for all
+    the calls of a solve."""
+    order = torch.argsort(idx.long(), stable=True)
+    slots = torch.arange(n + 1, device=idx.device)
+    offsets = torch.searchsorted(idx.long()[order].contiguous(), slots)
+
+    def scatter(vals: Tensor) -> Tensor:
+        return segments.fixed_order_sum(vals[order], offsets)
+
+    return scatter
+
+
+def _dense_scatters(graph: PoseGraph):
+    """The fixed-order scatters of the dense normal equations: the 6x6
+    blocks into the K x K block grid of H (prior, between ii, jj, ij, ji,
+    GPS), and the 6-vectors into the K slots of g (prior, between i, j,
+    GPS)."""
     K = graph.capacity
-    dev = graph.pose_mask.device
-    H = torch.zeros((6 * K, 6 * K), device=dev)
-    g = torch.zeros(6 * K, device=dev)
+    f, b, gf = graph.priors, graph.betweens, graph.gps
+    i1 = torch.cat([f.idx, b.i, b.j, b.i, b.j, gf.idx]).long()
+    i2 = torch.cat([f.idx, b.i, b.j, b.j, b.i, gf.idx]).long()
+    return (_fixed_scatter(i1 * K + i2, K * K),
+            _fixed_scatter(torch.cat([f.idx, b.i, b.j, gf.idx]), K))
+
+
+def _assemble_dense(graph: PoseGraph, free_mask: Tensor, scatters):
+    """Dense H (6K, 6K), g (6K) from all factors; fixed poses contribute as
+    constants (their Jacobian blocks are zeroed).  `scatters`:
+    :func:`_dense_scatters` of the graph's factor indices."""
+    K = graph.capacity
     free = free_mask.to(torch.float32)
-    ar6 = torch.arange(6, device=dev)
+    blocks, rows = scatters
 
-    def add_block(J1, J2, idx1, idx2, r):
-        blk = torch.einsum("nri,nrj->nij", J1, J2)
-        rows = idx1.long()[:, None] * 6 + ar6[None, :]
-        cols = idx2.long()[:, None] * 6 + ar6[None, :]
-        H.index_put_((rows[:, :, None].expand_as(blk),
-                      cols[:, None, :].expand_as(blk)), blk, accumulate=True)
-        if r is not None:
-            g.index_put_((rows,), torch.einsum("nri,nr->ni", J1, r),
-                         accumulate=True)
+    def blk(J1, J2):
+        return torch.einsum("nri,nrj->nij", J1, J2)
 
-    f = graph.priors
+    def vec(J, r):
+        return torch.einsum("nri,nr->ni", J, r)
+
+    f, b, gf = graph.priors, graph.betweens, graph.gps
     rp, Jp = _prior_terms(graph.poses, f)
     Jp = Jp * free[f.idx.long()][:, None, None]
-    add_block(Jp, Jp, f.idx, f.idx, rp)
-
-    b = graph.betweens
     rb, Ji, Jj = _between_terms(graph.poses, b)
     Ji = Ji * free[b.i.long()][:, None, None]
     Jj = Jj * free[b.j.long()][:, None, None]
-    add_block(Ji, Ji, b.i, b.i, rb)
-    add_block(Jj, Jj, b.j, b.j, rb)
-    add_block(Ji, Jj, b.i, b.j, None)
-    add_block(Jj, Ji, b.j, b.i, None)
-
-    gf = graph.gps
     rg, Jg = _gps_terms(graph.poses, gf)
     Jg = Jg * free[gf.idx.long()][:, None, None]
-    add_block(Jg, Jg, gf.idx, gf.idx, rg)
-    return H, g
+    H = blocks(torch.cat([blk(Jp, Jp), blk(Ji, Ji), blk(Jj, Jj), blk(Ji, Jj),
+                          blk(Jj, Ji), blk(Jg, Jg)]))
+    H = H.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
+    g = rows(torch.cat([vec(Jp, rp), vec(Ji, rb), vec(Jj, rb), vec(Jg, rg)]))
+    return H, g.reshape(6 * K)
 
 
 def optimize(graph: PoseGraph, free_mask: Optional[Tensor] = None,
@@ -190,8 +207,9 @@ def optimize(graph: PoseGraph, free_mask: Optional[Tensor] = None,
         free_mask = graph.pose_mask
     K = graph.capacity
     diag_mask = torch.repeat_interleave(free_mask & graph.pose_mask, 6)
+    scatters = _dense_scatters(graph)
     for _ in range(iters):
-        H, g = _assemble_dense(graph, free_mask)
+        H, g = _assemble_dense(graph, free_mask, scatters)
         # inactive/fixed pose blocks: identity rows keep Cholesky PD
         H = H + torch.diag(torch.where(diag_mask, damping, 1.0))
         g = g * diag_mask
@@ -208,12 +226,12 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
     """Gauss-Newton with a matrix-free preconditioned-CG inner solve.
 
     The normal-equation matvec is taken factor by factor (two batched
-    einsums and ``index_add_`` scatters per factor table) without forming
-    H, so memory is O(K*36), not the dense solve's O(K^2*36): the solver
-    for graphs beyond ``cg_threshold`` keyframes.  Block-Jacobi (6x6
-    diagonal blocks) preconditioning and a fixed `cg_iters` count, so
-    nothing is read back to the host.  On the card the scatters add in no
-    fixed order."""
+    einsums per factor table and one fixed-order scatter of all their
+    6-vectors onto the poses) without forming H, so memory is O(K*36), not
+    the dense solve's O(K^2*36): the solver for graphs beyond
+    ``cg_threshold`` keyframes.  Block-Jacobi (6x6 diagonal blocks)
+    preconditioning and a fixed `cg_iters` count, so nothing is read back
+    to the host."""
     if free_mask is None:
         free_mask = graph.pose_mask
     K = graph.capacity
@@ -223,9 +241,11 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
                       gf.idx.long())
     free = (free_mask & graph.pose_mask).to(torch.float32)
     eye6 = torch.eye(6, device=dev)
+    # the terms of a pose add in the order prior, between i, between j, GPS
+    to_pose = _fixed_scatter(torch.cat([pi, bi, bj, gi]), K)
 
-    def scatter(idx, vals, shape):
-        return torch.zeros(shape, device=dev).index_add_(0, idx, vals)
+    def scatter(*terms):
+        return to_pose(torch.cat(terms))
 
     for _ in range(iters):
         rp, Jp = _prior_terms(graph.poses, pf)
@@ -237,27 +257,26 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
         Jg = Jg * free[gi][:, None, None]
 
         def matvec(x):                      # x: (K, 6)
-            v = torch.einsum("nri,ni->nr", Jp, x[pi])
-            y = scatter(pi, torch.einsum("nri,nr->ni", Jp, v), (K, 6))
+            vp = torch.einsum("nri,ni->nr", Jp, x[pi])
             # betweens, cross blocks included
-            v = (torch.einsum("nri,ni->nr", Ji, x[bi])
-                 + torch.einsum("nri,ni->nr", Jj, x[bj]))
-            y.index_add_(0, bi, torch.einsum("nri,nr->ni", Ji, v))
-            y.index_add_(0, bj, torch.einsum("nri,nr->ni", Jj, v))
-            v = torch.einsum("nri,ni->nr", Jg, x[gi])
-            y.index_add_(0, gi, torch.einsum("nri,nr->ni", Jg, v))
-            return y + damping * x
+            vb = (torch.einsum("nri,ni->nr", Ji, x[bi])
+                  + torch.einsum("nri,ni->nr", Jj, x[bj]))
+            vg = torch.einsum("nri,ni->nr", Jg, x[gi])
+            return scatter(torch.einsum("nri,nr->ni", Jp, vp),
+                           torch.einsum("nri,nr->ni", Ji, vb),
+                           torch.einsum("nri,nr->ni", Jj, vb),
+                           torch.einsum("nri,nr->ni", Jg, vg)) + damping * x
 
-        g = scatter(pi, torch.einsum("nri,nr->ni", Jp, rp), (K, 6))
-        g.index_add_(0, bi, torch.einsum("nri,nr->ni", Ji, rb))
-        g.index_add_(0, bj, torch.einsum("nri,nr->ni", Jj, rb))
-        g.index_add_(0, gi, torch.einsum("nri,nr->ni", Jg, rg))
+        g = scatter(torch.einsum("nri,nr->ni", Jp, rp),
+                    torch.einsum("nri,nr->ni", Ji, rb),
+                    torch.einsum("nri,nr->ni", Jj, rb),
+                    torch.einsum("nri,nr->ni", Jg, rg))
 
         # block-Jacobi preconditioner
-        D = scatter(pi, torch.einsum("nri,nrj->nij", Jp, Jp), (K, 6, 6))
-        D.index_add_(0, bi, torch.einsum("nri,nrj->nij", Ji, Ji))
-        D.index_add_(0, bj, torch.einsum("nri,nrj->nij", Jj, Jj))
-        D.index_add_(0, gi, torch.einsum("nri,nrj->nij", Jg, Jg))
+        D = scatter(torch.einsum("nri,nrj->nij", Jp, Jp),
+                    torch.einsum("nri,nrj->nij", Ji, Ji),
+                    torch.einsum("nri,nrj->nij", Jj, Jj),
+                    torch.einsum("nri,nrj->nij", Jg, Jg))
         Dinv = torch.linalg.inv(D + (damping + 1e-6) * eye6)
 
         def precond(x):

@@ -1,9 +1,15 @@
 """Segment reductions over rows sorted by segment id (port of
 ``msst_tpu.ops.segments``).
 
-msst_tpu sums segments as differences of prefix sums because scatters are
-slow on its device; here a scatter-add (``index_add_``) does it directly,
-and the row range of each segment comes from two binary searches.
+msst_tpu sums a segment as a difference of compensated prefix sums at its
+boundaries.  Here each segment's rows are added one after another in row
+order (``torch.segment_reduce`` over the segments' row offsets): on the
+card one thread sums a segment's column, so the order of the additions is
+fixed and two drives of the same input give the same bits, where a
+scatter-add (``index_add_``) or a float prefix scan adds in an order that
+changes from run to run.  On the CPU the sums equal those of a sequential
+scatter-add bit for bit.
+
 Callers keep msst_tpu's cell-centre demeaning: they pass positions minus
 their cell centre (|r| <= leaf/2), so float32 sums keep metric precision
 however far the cloud sits from the origin.
@@ -17,13 +23,27 @@ Tensor = torch.Tensor
 
 
 def segment_sum(vals: Tensor, seg: Tensor, num_segments: int) -> Tensor:
-    """segment_sum; rows whose id is >= num_segments are dropped.
+    """segment_sum for non-decreasing ``seg``, each segment's rows added in
+    row order; rows whose id is >= num_segments are dropped (they sort to
+    the end).
 
     vals: (N,) or (N, C).  Returns (num_segments,) or (num_segments, C)."""
-    ids = torch.clamp(seg, max=num_segments).long()
-    out = vals.new_zeros((num_segments + 1,) + tuple(vals.shape[1:]))
-    out.index_add_(0, ids, vals)
-    return out[:num_segments]
+    ids = torch.arange(num_segments + 1, dtype=seg.dtype, device=seg.device)
+    offsets = torch.searchsorted(seg.contiguous(), ids)
+    return fixed_order_sum(vals, offsets)
+
+
+def fixed_order_sum(vals: Tensor, offsets: Tensor) -> Tensor:
+    """(S, ...) sums of the row runs [offsets[s], offsets[s + 1]) of
+    vals (N, ...), each run's rows added in row order from 0 (an empty run
+    sums to 0); rows past offsets[-1] are not read.  One thread of the card
+    sums one run's column, which fixes the order of its additions."""
+    v = vals[:, None] if vals.ndim == 1 else vals
+    # unsafe: no validity check of the offsets, which would read them back
+    # to the host; callers make them non-decreasing within [0, N]
+    out = torch.segment_reduce(v, "sum", offsets=offsets, axis=0,
+                               initial=0.0, unsafe=True)
+    return out[:, 0] if vals.ndim == 1 else out
 
 
 def segment_first(vals: Tensor, seg: Tensor, num_segments: int

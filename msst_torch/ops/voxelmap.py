@@ -12,7 +12,7 @@ tensor as its plain PyTorch twin (:func:`lookup_cat_plain`).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -313,15 +313,24 @@ def points_to_moments(xyz: Tensor, mask: Tensor, leaf: float,
     return out
 
 
+def scale_moments(m: VoxelMoments, s) -> VoxelMoments:
+    """s = -1 turns a contribution into its eviction delta."""
+    return m._replace(rsum=m.rsum * s, cnt=m.cnt * s)
+
+
 def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int, *,
-                  trim_center: Tensor, trim_radius: float, leaf: float,
-                  origin: Tensor, group_bits: int = 0, min_cnt: float = 0.5):
+                  trim_center: Optional[Tensor] = None,
+                  trim_radius: Optional[float] = None,
+                  leaf: Optional[float] = None,
+                  origin: Optional[Tensor] = None, group_bits: int = 0,
+                  min_cnt: float = 0.5):
     """Merge two sorted moment tables -> (merged, dropped): equal keys sum;
-    cells below `min_cnt` die; cells farther than `trim_radius` from
-    `trim_center` die (the reference's surrounding-keyframe radius,
-    ``extractNearby`` :862-897, at cell granularity).  Survivors stay in key
-    order; beyond `capacity` the highest keys drop, and `dropped` counts
-    them."""
+    cells below `min_cnt` die (an eviction's ``scale_moments(m, -1)``
+    cancels counts exactly); with `trim_center`, cells farther than
+    `trim_radius` from it die too (the reference's surrounding-keyframe
+    radius, ``extractNearby`` :862-897, at cell granularity; `leaf` and
+    `origin` decode the cell centres).  Survivors stay in key order; beyond
+    `capacity` the highest keys drop, and `dropped` counts them."""
     n_tot = a.key.shape[0] + b.key.shape[0]
     dev = a.key.device
     vals = torch.cat([torch.cat([a.rsum, a.cnt[:, None]], dim=1),
@@ -333,12 +342,14 @@ def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int, *,
     seg = torch.where(valid_s, seg, n_tot)
     sums = segments.segment_sum(vals_s, seg, n_tot)
     key_v, occupied = segments.segment_first(key_s, seg, n_tot)
-    center = _decode_center(
-        key_v, torch.tensor(leaf, dtype=torch.float32, device=dev),
-        origin.to(torch.float32), group_bits)
-    d2 = torch.sum((center - trim_center) ** 2, dim=1)
-    r2 = torch.tensor(trim_radius, dtype=torch.float32, device=dev) ** 2
-    alive = occupied & (sums[:, 3] >= min_cnt) & (d2 <= r2)
+    alive = occupied & (sums[:, 3] >= min_cnt)
+    if trim_center is not None:
+        center = _decode_center(
+            key_v, torch.tensor(leaf, dtype=torch.float32, device=dev),
+            origin.to(torch.float32), group_bits)
+        d2 = torch.sum((center - trim_center) ** 2, dim=1)
+        r2 = torch.tensor(trim_radius, dtype=torch.float32, device=dev) ** 2
+        alive = alive & (d2 <= r2)
     rank = torch.cumsum(alive.to(torch.int64), 0) - 1
     # rows that do not survive or do not fit all go to one cut-off slot
     dest = torch.where(alive & (rank < capacity), rank, capacity)

@@ -488,10 +488,7 @@ def test_gps_keyframe_step_matches_reference(reference):
 
 
 _UNPORTED = {
-    "rebuild": dict(params=dict(map_update="rebuild")),
-    "exact_features": dict(params=dict(feature_method="exact"), scans=1),
     "window": dict(window=4),
-    "eviction": dict(params=dict(max_keyframes=2), scans=12),
 }
 
 
