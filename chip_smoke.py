@@ -21,7 +21,11 @@ Phases, one line each; any failure exits non-zero:
    64-bucket table and 4 candidates a bucket (collisions, overflow, masked
    queries, short rows; k = 1, 5, 16), on a lattice whose candidates tie
    across probes out of point-index order (k = 5, 16), and on the two in
-   one ``query_cat`` with n_a = 333; B3, the row gather (3c), at
+   one ``query_cat`` with n_a = 333, and at the calibration path's
+   shapes (k, C, max_sqdist) = (1, 16, 1), (1, 16, 4), (10, 24, inf),
+   (16, 24, inf), (48, 64, 1.4^2) and (11, 32, inf) on a 16384-slot cloud
+   of phase 11's scene, and k = 48 on the lattice, ties at the 48th slot;
+   B3, the row gather (3c), at
    pallas_bench's shapes and at every gather the loop makes from the
    keyframe store (256 and 1024 keyframes), and on clamped indices with the
    scalar path.  Then each kernel's time beside its twin's, the host's
@@ -68,7 +72,18 @@ Phases, one line each; any failure exits non-zero:
 10. ``python -m msst_torch.models.liosam.demo``'s ``main`` over 40 scans,
    and ``save_map`` into a temporary directory: three PCDs holding the
    map's points.
-Each of 6-10 drives the card and fails the run when its check fails.
+11. the calibration path on the card at its defaults' sizes, on two
+   64x1024 sweeps of sim.World() from a level master and a side mount
+   (90 deg yaw, 45 deg pitch, ~0.5 m lever arm): 11a
+   ``multi_lica.calibrate_pair`` with ``MultiLicaConfig()`` (and the port
+   on the CPU beside it), 11b ``auto_calibrate`` from a lever-arm guess,
+   11c ``NdtCalibrator.process_pair`` over 3 frames, each within 2 deg and
+   0.2 m of the true mount and counted in B2 launches; 11d
+   ``AllanCalibrator`` over a 2 h x 200 Hz log, the card against the CPU
+   twin (the Allan variances and bias instabilities of the gyro axes
+   within 1 %); 11e ``python -m msst_torch.cli calibrate`` by each method, its
+   JSON equal to the library's.
+Each of 6-11 drives the card and fails the run when its check fails.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  --out DIR also writes the per-scan
@@ -407,7 +422,8 @@ def phase_voxel_lookup(feats, queries, p):
             "distinct_rows": work["rows"], "bytes": work["bytes"]}
 
 
-def _knn_equal(label, grid_a, grid_b, q, qm, n_a, k, cand):
+def _knn_equal(label, grid_a, grid_b, q, qm, n_a, k, cand,
+               max_sqdist=float("inf")):
     """knn.query_cat (the kernel) against query_cat_plain on the card: every
     slot of idx, valid and sqdist bit-equal.  With grid_b None (and n_a
     None), knn.query against query_plain on grid_a.  Returns (result,
@@ -417,8 +433,10 @@ def _knn_equal(label, grid_a, grid_b, q, qm, n_a, k, cand):
     from msst_torch.ops import knn
 
     if grid_b is None:
-        got = knn.query(grid_a, q, qm, k=k, candidates_per_cell=cand)
-        want = knn.query_plain(grid_a, q, qm, k=k, candidates_per_cell=cand)
+        got = knn.query(grid_a, q, qm, k=k, candidates_per_cell=cand,
+                        max_sqdist=max_sqdist)
+        want = knn.query_plain(grid_a, q, qm, k=k, candidates_per_cell=cand,
+                               max_sqdist=max_sqdist)
     else:
         got = knn.query_cat(grid_a, grid_b, q, qm, n_a, k=k,
                             candidates_per_cell=cand)
@@ -1313,6 +1331,441 @@ def phase_demo(card):
             "keyframes": int(lio.state.kf.count)}
 
 
+# phase 11's scene: two 64 x 1024 sweeps (65,536 points each, the golden
+# calibration tests' CAP) ray-cast in sim.World() from a level master at
+# CALIB_MASTER_XYZ and a side mount with 90 degrees of yaw, 45 of pitch and
+# a ~0.5 m lever arm (the Multi_LiCa demo rig's geometry).  msst_tpu on this
+# scene, on the CPU: Multi_LiCa 0.7135 deg / 0.0884 m, auto_calibrate (the
+# lever arm + (0.1, -0.1, 0.05) m as its guess) 0.0000 deg / 0.0058 m, NDT
+# over 3 frames of every 4th point from the mount off by (1, -1, 2) deg and
+# that lever-arm error 0.6272 deg / 0.1578 m; of the other master positions
+# tried ((3, 2), (5, -4), (-20, -12) m and two other mounts) msst_tpu's
+# Multi_LiCa flipped 180 degrees on each.  Every method is gated at
+# tests/test_calibration.py's 2 degrees and 0.2 m, looser than each of
+# msst_tpu's errors here.
+CALIB_MASTER_XYZ = (-5.0, 0.0, 1.8)
+CALIB_SIDE_RPY_DEG = (0.0, 45.0, 90.0)
+CALIB_LEVER_M = (0.1, 0.45, -0.2)
+CALIB_SEED = 11
+CALIB_GATE_DEG = 2.0
+CALIB_GATE_M = 0.2
+CALIB_GUESS_RPY_DEG = (1.0, -1.0, 2.0)     # NDT's initial guess, off the mount
+CALIB_GUESS_T_M = (0.1, -0.1, 0.05)        # and the lever-arm guesses' error
+NDT_FRAMES = 3
+# 11d: a 2 h log at 200 Hz, white noise densities and bias walks of a MEMS
+# IMU, gravity on acc z
+ALLAN_SAMPLES = 2 * 3600 * 200
+ALLAN_DT = 0.005
+ALLAN_GYR_N = 1.5e-3       # rad/s/sqrt(Hz)
+ALLAN_ACC_N = 4.0e-3       # m/s^2/sqrt(Hz)
+ALLAN_AGREE = 0.01         # card against the CPU twin, relative
+# B2 at the calibration path's shapes (label, k, C, max_sqdist, grid cell,
+# table, queries): the source cloud's queries against the target grid, or
+# the target's own points
+KNN_CALIB_SHAPES = (
+    ("GICP, NDT, manual score", 1, 16, 1.0, 1.4, 16384, "source"),
+    ("yaw search", 1, 16, 4.0, 2.0, 8192, "source"),
+    ("covariances k=10", 10, 24, float("inf"), 1.0, 8192, "self"),
+    ("covariances k=16", 16, 24, float("inf"), 1.4, 16384, "self"),
+    ("normals and FPFH", 48, 64, 1.4 ** 2, 1.4, 16384, "self"),
+    ("outlier removal (k + 1)", 11, 32, float("inf"), 1.0, 8192, "self"),
+)
+CALIB_TIMED_CALLS = 20
+
+
+def _mount(rpy_deg, t):
+    from scipy.spatial.transform import Rotation
+
+    T = np.eye(4)
+    T[:3, :3] = Rotation.from_euler("xyz", np.radians(rpy_deg)).as_matrix()
+    T[:3, 3] = t
+    return T
+
+
+def _calib_scene():
+    """(master sweep, side sweep, true side -> master extrinsic)."""
+    from msst_torch.utils import sim
+
+    rng = np.random.default_rng(CALIB_SEED)
+    T_wm = _mount((0.0, 0.0, 0.0), CALIB_MASTER_XYZ)
+    T_ms = _mount(CALIB_SIDE_RPY_DEG, CALIB_LEVER_M)
+    world = sim.World()
+    m, *_ = sim.raycast_scan(world, T_wm, n_scan=64, horizon=1024, rng=rng)
+    s, *_ = sim.raycast_scan(world, T_wm @ T_ms, n_scan=64, horizon=1024,
+                             rng=rng)
+    return m, s, T_ms
+
+
+def _pose_err(T, T_gt):
+    """(degrees, metres) between two 4x4 transforms."""
+    T = np.asarray(T, np.float64)
+    c = (np.trace(T[:3, :3].T @ T_gt[:3, :3]) - 1.0) / 2.0
+    return (float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0)))),
+            float(np.linalg.norm(T[:3, 3] - T_gt[:3, 3])))
+
+
+def _matrix(pose):
+    return pose.to_matrix().detach().cpu().numpy()
+
+
+def _prepped(xyz, dev, pose=None):
+    """Multi_LiCa's prep of a sweep on `dev`: the 20 m crop and the 0.35 m
+    voxel filter into 16384 slots, moved by `pose` (a 4x4) if given."""
+    import torch
+
+    from msst_torch.ops.pointcloud import Cloud, crop_box
+    from msst_torch.ops.voxel import voxel_downsample
+
+    cl = crop_box(Cloud.create(torch.from_numpy(xyz).to(dev)),
+                  (-20.0,) * 3, (20.0,) * 3)
+    cl = voxel_downsample(cl, 0.35, capacity=16384)
+    pts = cl.xyz
+    if pose is not None:
+        T = torch.as_tensor(pose, dtype=torch.float32, device=dev)
+        pts = pts @ T[:3, :3].T + T[:3, 3]
+    return pts.contiguous(), cl.mask.contiguous()
+
+
+def phase_knn_calib_shapes(scene, usage, dev_name="cuda"):
+    """Phase 3b, kernel B2 at the calibration path's shapes: each (k, C,
+    max_sqdist) of KNN_CALIB_SHAPES bit-equal to the twin on a 16384-slot
+    cloud of phase 11's scene, and k = 48 (KCap = 64) on the lattice whose
+    candidates tie at the 48th slot; each shape timed beside its twin, on
+    the device alone, and against its bound."""
+    import torch
+
+    from msst_torch.ops import knn
+    from msst_torch.utils.kernel_work import knn_query_work
+
+    dev = torch.device(dev_name)
+    m, s, T_ms = scene
+    tq, tm = _prepped(m, dev)
+    sq, sm = _prepped(s, dev, T_ms)
+    shapes, err = [], 0.0
+    for label, k, cand, max_sq, cell, table, queries in KNN_CALIB_SHAPES:
+        grid = knn.build(tq, tm, cell, table)
+        q, qm = (sq, sm) if queries == "source" else (tq, tm)
+        res, e = _knn_equal(label, grid, None, q, qm, None, k, cand, max_sq)
+        err = max(err, e)
+
+        def call(grid=grid, q=q, qm=qm, k=k, cand=cand, max_sq=max_sq):
+            knn.query(grid, q, qm, k=k, candidates_per_cell=cand,
+                      max_sqdist=max_sq)
+
+        def plain(grid=grid, q=q, qm=qm, k=k, cand=cand, max_sq=max_sq):
+            knn.query_plain(grid, q, qm, k=k, candidates_per_cell=cand,
+                            max_sqdist=max_sq)
+
+        runs = {"kernel": [], "plain": []}
+        for name, fn in (("kernel", call), ("plain", plain),
+                         ("plain", plain), ("kernel", call)):
+            runs[name].append(_cuda_ms(fn, n=CALIB_TIMED_CALLS, warm=2))
+        work = knn_query_work(grid, grid, q, qm, q.shape[0], cand, res.idx)
+        bound_ms, bound_by = _bound(work["bytes"], work["ops"])
+        shapes.append({
+            "label": label, "k": k, "C": cand,
+            "max_sqdist": max_sq if np.isfinite(max_sq) else None,
+            "cell": cell, "table": table, "queries": int(q.shape[0]),
+            "live_queries": int(qm.sum()), "points": int(tm.sum()),
+            "valid_slots": int(res.valid.sum()), "max_abs_err": e,
+            "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+            "device_ms": _device_ms(call, "knn_query_kernel"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work})
+    lgrid, lq, lqm = _lattice_grid(dev)
+    ties = {}
+    for max_sq in (float("inf"), 0.75 ** 2):
+        lres, e = _knn_equal(f"lattice ties, k=48, max_sqdist={max_sq}",
+                             lgrid, None, lq, lqm, None, 48, 64, max_sq)
+        d = lres.sqdist
+        ties[max_sq] = int((torch.isfinite(d[:, 47])
+                            & (d[:, 47] == d[:, 46])).sum())
+        err = max(err, e)
+    if min(ties.values()) == 0:
+        raise AssertionError(f"knn_query: no ties at the 48th slot ({ties})")
+    kcap64 = [v for fn, v in usage.get("knn_query", {}).items()
+              if "<64" in fn]
+    print(f"phase 3b (calibration shapes): knn_query == twin, all slots, on "
+          f"{int(tm.sum())} target and {int(sm.sum())} source points of "
+          f"16384 slots; lattice, k=48, C=64: {ties} rows tie at the 48th "
+          f"slot (no cap / 0.75 m cap); max_abs_err {err}; KCap = 64 "
+          f"(ptxas: registers, spill stores B, spill loads B): {kcap64}",
+          flush=True)
+    for r in shapes:
+        print(f"        {r['label']}: k={r['k']}, C={r['C']}, max_sqdist="
+              f"{r['max_sqdist'] or 'inf'}, cell {r['cell']} m, H={r['table']}, "
+              f"{r['live_queries']} of {r['queries']} queries live, "
+              f"{r['valid_slots']} valid slots: {r['ms']:.4f} ms a launch, "
+              f"plain {r['plain_ms']:.4f} ms (CUDA events, "
+              f"{CALIB_TIMED_CALLS} calls); device {_fmt_ms(r['device_ms'])}; "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
+              f"({r['work']['bytes']} B, {r['work']['ops']} operations, "
+              f"{r['work']['candidates']} candidates)", flush=True)
+    return {"shapes": shapes,
+            "ties_at_48": {"no cap": ties[float("inf")],
+                           "0.75 m cap": ties[0.75 ** 2]},
+            "kcap64_ptxas": kcap64, "max_abs_err": err}
+
+
+def _timed(fn):
+    """(result, seconds) of fn() to the end of its device work."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _counted(fn):
+    """(result, seconds, B2 launches) of fn() with the counts set to 0
+    just before it."""
+    from msst_torch.ops import knn
+
+    knn.query.launches = 0
+    out, sec = _timed(fn)
+    return out, sec, knn.query.launches
+
+
+def _check_calib(tag, T, T_gt, launches):
+    deg, metres = _pose_err(T, T_gt)
+    if not np.isfinite(T).all() or deg > CALIB_GATE_DEG or metres > CALIB_GATE_M:
+        raise AssertionError(f"{tag}: {deg:.4f} deg / {metres:.4f} m from the "
+                             f"true mount, gates {CALIB_GATE_DEG} deg / "
+                             f"{CALIB_GATE_M} m")
+    if launches == 0:
+        raise AssertionError(f"{tag}: no B2 launch")
+    return deg, metres
+
+
+def phase_calibration(scene, card, dev_name="cuda"):
+    """Phase 11, the calibration path at its defaults' sizes (11a-11d);
+    each run's B2 launches counted from 0."""
+    import torch
+
+    from msst_torch.models.calibration import auto_calib, multi_lica
+    from msst_torch.models.calibration import ndt_calib
+    from msst_torch.ops import se3
+
+    dev = torch.device(dev_name)
+    m, s, T_ms = scene
+    t_phase = time.perf_counter()
+    out = {}
+
+    def tensors(xyz, d):
+        return (torch.from_numpy(xyz).to(d),
+                torch.ones(len(xyz), dtype=torch.bool, device=d))
+
+    mx, mm = tensors(m, dev)
+    sx, sm = tensors(s, dev)
+    cfg = multi_lica.MultiLicaConfig()
+    res, sec, n = _counted(lambda: multi_lica.calibrate_pair(sx, sm, mx, mm,
+                                                             cfg))
+    T = _matrix(res.pose)
+    deg, metres = _check_calib("11a", T, T_ms, n)
+    t0 = time.perf_counter()
+    cpu = multi_lica.calibrate_pair(*tensors(s, "cpu"), *tensors(m, "cpu"),
+                                    cfg)
+    t_cpu = time.perf_counter() - t0
+    gap = _pose_err(T, _matrix(cpu.pose))
+    out["11a"] = {"deg": deg, "m": metres, "s": sec, "launches": n,
+                  "fitness": float(res.fitness), "rmse": float(res.rmse),
+                  "coarse_inliers": int(res.coarse_inliers),
+                  "cpu_gap_deg": gap[0], "cpu_gap_m": gap[1],
+                  "cpu_deg_m": _pose_err(_matrix(cpu.pose), T_ms),
+                  "cpu_s": t_cpu}
+    print(f"phase 11a: multi_lica.calibrate_pair(MultiLicaConfig()) of two "
+          f"64x1024 sweeps on {dev}: {deg:.4f} deg / {metres:.4f} m from the "
+          f"true mount (gates {CALIB_GATE_DEG} deg / {CALIB_GATE_M} m); "
+          f"fitness {float(res.fitness):.4f}, rmse {float(res.rmse):.4f}, "
+          f"{int(res.coarse_inliers)} coarse inliers; {n} B2 launches; "
+          f"{sec:.2f} s; the port on the CPU {gap[0]:.5f} deg / {gap[1]:.5f} m "
+          f"from it, in {t_cpu:.1f} s [{card}]", flush=True)
+
+    guess_t = torch.tensor(T_ms[:3, 3] + np.array(CALIB_GUESS_T_M),
+                           dtype=torch.float32, device=dev)
+    init = se3.Pose.from_rpy_xyz(torch.zeros(3, device=dev), guess_t)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res, sec, n = _counted(lambda: auto_calib.auto_calibrate(
+        mx, mm, sx, sm, auto_calib.AutoCalibConfig(), gen, init_pose=init))
+    deg, metres = _check_calib("11b", _matrix(res.pose), T_ms, n)
+    out["11b"] = {"deg": deg, "m": metres, "s": sec, "launches": n,
+                  "yaw_cost": float(res.yaw_cost),
+                  "icp_rmse": float(res.icp_rmse)}
+    print(f"phase 11b: auto_calibrate from the lever arm + "
+          f"{CALIB_GUESS_T_M} m: {deg:.4f} deg / {metres:.4f} m; ground "
+          f"{bool(res.ground_ok)}, ICP rmse {float(res.icp_rmse):.4f}; {n} B2 "
+          f"launches (136 yaws); {sec:.2f} s", flush=True)
+
+    rpy = np.radians(CALIB_SIDE_RPY_DEG) + np.radians(CALIB_GUESS_RPY_DEG)
+    guess = se3.Pose.from_rpy_xyz(torch.tensor(rpy, dtype=torch.float32,
+                                               device=dev), guess_t)
+    cal = ndt_calib.NdtCalibrator(ndt_calib.NdtCalibConfig(),
+                                  initial_guess=guess, device=dev)
+    frames = []
+    for _ in range(NDT_FRAMES):
+        r, sec, n = _counted(lambda: cal.process_pair(m[::4], s[::4]))
+        frames.append({"s": sec, "launches": n, "iters": int(r.iters),
+                       "score": float(r.score)})
+    deg, metres = _check_calib("11c", _matrix(cal.pose), T_ms,
+                               sum(f["launches"] for f in frames))
+    out["11c"] = {"deg": deg, "m": metres, "frames": frames}
+    print(f"phase 11c: NdtCalibrator(NdtCalibConfig()) over {NDT_FRAMES} "
+          f"frames of every 4th point, from the mount off by "
+          f"{CALIB_GUESS_RPY_DEG} deg and {CALIB_GUESS_T_M} m: {deg:.4f} deg "
+          f"/ {metres:.4f} m; per frame (s, B2 launches, NDT iterations): "
+          + ", ".join(f"({f['s']:.3f}, {f['launches']}, {f['iters']})"
+                      for f in frames), flush=True)
+    out["11d"] = _allan_check(dev, card)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _rel(a, b):
+    """|a - b| / |b|; 0 where both are 0."""
+    return abs(a - b) / abs(b) if b else (0.0 if a == b else float("inf"))
+
+
+def _allan_check(dev, card):
+    """11d: AllanCalibrator over a 2 h x 200 Hz synthetic log on `dev` and
+    on the CPU (the twin).  Gated: on the gyro axes (means near 0) each
+    cluster's Allan variance and the bias instability within ALLAN_AGREE of
+    the CPU's.  Printed: the acc axes (a bias, and gravity on z: the
+    float32 cumulative sum of an axis with a mean loses the small clusters'
+    precision, in msst_tpu alike) and every axis' fitted white noise (the
+    float32 SVD fit of msst_tpu's fit_allan; ROADMAP, section 3)."""
+    import torch
+
+    from msst_torch.models.calibration import imu_allan
+
+    rng = np.random.default_rng(23)
+    n = ALLAN_SAMPLES
+    gyro = (ALLAN_GYR_N / np.sqrt(ALLAN_DT) * rng.normal(size=(n, 3))
+            + 1e-3 + np.cumsum(rng.normal(scale=2e-7, size=(n, 3)), axis=0))
+    acc = (ALLAN_ACC_N / np.sqrt(ALLAN_DT) * rng.normal(size=(n, 3))
+           + np.array([0.05, -0.03, 9.80665])
+           + np.cumsum(rng.normal(scale=2e-6, size=(n, 3)), axis=0))
+    t = np.arange(n) * ALLAN_DT
+    cals = {d: imu_allan.AllanCalibrator(max_samples=n, device=d)
+            for d in (str(dev), "cpu")}
+    for i in range(n):
+        for c in cals.values():
+            c.add_sample(t[i], gyro[i], acc[i])
+    res, secs = {}, {}
+    for d, c in cals.items():
+        t0 = time.perf_counter()
+        res[d] = c.compute()
+        secs[d] = time.perf_counter() - t0
+    card_r, cpu_r = res[str(dev)], res["cpu"]
+    rows, worst = [], 0.0
+    for kind in ("gyr", "acc"):
+        for ax in range(3):
+            a, b = card_r[f"{kind}_axes"][ax], cpu_r[f"{kind}_axes"][ax]
+            rel = {"avar": max(_rel(x, y) for x, y in zip(a["avar"],
+                                                         b["avar"])),
+                   "bias_instability": _rel(a["bias_instability"],
+                                            b["bias_instability"]),
+                   "white_noise": _rel(a["white_noise"], b["white_noise"])}
+            gated = kind == "gyr"
+            if gated:
+                worst = max(worst, rel["avar"], rel["bias_instability"])
+            rows.append({"axis": f"{kind} {'xyz'[ax]}", "gated": gated,
+                         "white_noise": [a["white_noise"], b["white_noise"]],
+                         "bias_instability": [a["bias_instability"],
+                                              b["bias_instability"]],
+                         "rel": rel})
+    print(f"phase 11d: AllanCalibrator, {n} samples (2 h at 200 Hz), on "
+          f"{dev} in {secs[str(dev)]:.2f} s, on the CPU in {secs['cpu']:.2f} "
+          f"s; white noise known {ALLAN_GYR_N} (gyr), {ALLAN_ACC_N} (acc), "
+          f"fitted card {card_r['gyr_n']:.6g} / {card_r['acc_n']:.6g}, CPU "
+          f"{cpu_r['gyr_n']:.6g} / {cpu_r['acc_n']:.6g}; card against CPU, "
+          "largest relative gap (avar over 100 clusters, bias instability, "
+          "white noise): "
+          + "; ".join(f"{r['axis']} ({r['rel']['avar']:.2e}, "
+                      f"{r['rel']['bias_instability']:.2e}, "
+                      f"{r['rel']['white_noise']:.2e})"
+                      + ("" if r["gated"] else " not gated")
+                      for r in rows) + f" [{card}]", flush=True)
+    if worst > ALLAN_AGREE:
+        raise AssertionError(f"11d: card and CPU differ by {worst:.3e} > "
+                             f"{ALLAN_AGREE} on a gyro axis")
+    return {"rows": rows, "s": secs, "worst_gated": worst,
+            "gyr_n": [card_r["gyr_n"], cpu_r["gyr_n"]],
+            "acc_n": [card_r["acc_n"], cpu_r["acc_n"]]}
+
+
+def phase_calib_cli(scene, card, dev_name="cuda"):
+    """Phase 11e: ``python -m msst_torch.cli calibrate TGT.pcd SRC.pcd
+    --method M`` for lica, auto and ndt, three processes started together,
+    on PCDs of phase 11's sweeps; each JSON matrix equal to the library's
+    call made the CLI's way (MultiLidarCalibrator.standard_calibration,
+    auto_calibrate of clouds padded to 32768 with a generator seeded 0,
+    NdtCalibrator from identity) in this process."""
+    import tempfile
+
+    import torch
+
+    from msst_torch import cli
+    from msst_torch.models.calibration import auto_calib, multi_lica
+    from msst_torch.models.calibration import device as device_mod
+    from msst_torch.models.calibration import ndt_calib
+    from msst_torch.utils.io_pcd import write_pcd
+
+    dev = torch.device(dev_name)
+    m, s, _ = scene
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tgt, src = os.path.join(d, "master.pcd"), os.path.join(d, "side.pcd")
+        write_pcd(tgt, m)
+        write_pcd(src, s)
+        procs = {}
+        for method in ("lica", "auto", "ndt"):
+            outp = os.path.join(d, f"{method}.json")
+            procs[method] = (outp, subprocess.Popen(
+                [sys.executable, "-m", "msst_torch.cli", "calibrate", tgt, src,
+                 "--method", method, "--output", outp, "--device", dev_name],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        try:
+            want = {}
+            r = multi_lica.MultiLidarCalibrator(
+                multi_lica.MultiLicaConfig(), device=dev
+            ).standard_calibration(m, [s])[0]
+            want["lica"] = _matrix(r.pose)
+            m_x, m_m = device_mod.pad(m, cli.AUTO_CAPACITY, dev)
+            s_x, s_m = device_mod.pad(s, cli.AUTO_CAPACITY, dev)
+            want["auto"] = _matrix(auto_calib.auto_calibrate(
+                m_x, m_m, s_x, s_m, auto_calib.AutoCalibConfig(),
+                torch.Generator(device=dev).manual_seed(0)).pose)
+            cal = ndt_calib.NdtCalibrator(device=dev)
+            cal.process_pair(m, s)
+            want["ndt"] = _matrix(cal.pose)
+            got = {}
+            for method, (outp, proc) in procs.items():
+                log, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"11e: msst_torch.cli calibrate "
+                                         f"--method {method} exited "
+                                         f"{proc.returncode}:\n{log[-3000:]}")
+                with open(outp) as f:
+                    got[method] = np.asarray(json.load(f)["source_0"]["matrix"],
+                                             np.float32)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    diffs = {k: float(np.abs(got[k] - want[k]).max()) for k in got}
+    wall = time.perf_counter() - t0
+    print(f"phase 11e: python -m msst_torch.cli calibrate, lica / auto / ndt "
+          f"in three processes on {dev}: JSON matrices against the library's "
+          f"max |diff| {diffs}; {wall:.1f} s [{card}]", flush=True)
+    if any(diffs.values()):
+        raise AssertionError(f"11e: the CLI's matrices differ: {diffs}")
+    return {"diffs": diffs, "s": wall}
+
+
 def _build_kernels(names):
     """One nvcc per source, all started together; then load each library.
     Returns the seconds each build took (0 where it was already built)."""
@@ -1388,6 +1841,8 @@ def main(argv=None) -> int:
     b1 = phase_voxel_lookup(feats, queries, p)
     b2 = phase_knn_query(feats, queries, p)
     del feats, queries
+    calib_scene = _calib_scene()
+    b2["calib_shapes"] = phase_knn_calib_shapes(calib_scene, usage)
     b3 = phase_gather_rows(torch.device("cuda"))
     res = {"card": card, "build_s": build_s, "resource_usage": usage,
            "kernels": [b1, b2, b3]}
@@ -1416,6 +1871,14 @@ def main(argv=None) -> int:
                       for s in ("downsampled", "direct")}
     res["exact_features"] = phase_exact_features(data, card)
     res["demo"] = phase_demo(card)
+    res["calibration"] = phase_calibration(calib_scene, card)
+    res["calibration"]["11e"] = phase_calib_cli(calib_scene, card)
+    b2["calibration_launches"] = {
+        "11a": res["calibration"]["11a"]["launches"],
+        "11b": res["calibration"]["11b"]["launches"],
+        "11c": [f["launches"] for f in res["calibration"]["11c"]["frames"]]}
+    print(f"phase 11: {res['calibration']['s']:.1f} s (11a-11d), 11e "
+          f"{res['calibration']['11e']['s']:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -8,22 +8,36 @@ port's NamedTuple of the same name and fields, with tensors on `device`
 are kept (bool stays bool, int32 stays int32).  Every leaf is carried,
 the knn hash grids of ``LocalMap`` included, so a state of either
 scan-to-map method taken from msst_tpu is a state the port can step from.
+
+``config_from(cfg)`` takes a msst_tpu calibration config (``MultiLicaConfig``,
+``AutoCalibConfig``, ``NdtCalibConfig``) to the port's, field by field and by
+name; ``ndt_calibrator_from(cal, device)`` builds the port's
+``NdtCalibrator`` with msst_tpu's config, carried pose and score history, so
+that both packages go on from the same state.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .models.calibration import auto_calib, multi_lica, ndt_calib
 from .models.liosam import imu_fusion, loop, state
-from .ops import graph, imu, knn, registration, se3, voxelmap
+from .ops import graph, imu, knn, pointcloud, registration, se3, voxelmap
 
 _TYPES = {cls.__name__: cls for cls in (
     voxelmap.VoxelFeatureMap, voxelmap.VoxelMoments, knn.HashGrid,
     graph.PoseGraph, graph.PriorFactor, graph.BetweenFactor, graph.GpsFactor,
     se3.Pose, imu_fusion.FilterState, imu.NavState, imu.ImuBias,
     state.LioState, state.KeyframeStore, state.LocalMap,
-    loop.LoopResult, registration.IcpResult,
+    loop.LoopResult, registration.IcpResult, registration.NdtMap,
+    pointcloud.Cloud,
+)}
+_CONFIGS = {cls.__name__: cls for cls in (
+    multi_lica.MultiLicaConfig, auto_calib.AutoCalibConfig,
+    ndt_calib.NdtCalibConfig,
 )}
 
 
@@ -54,3 +68,20 @@ def to_numpy(obj):
     if obj is None:
         return None
     return obj.detach().cpu().numpy()
+
+
+def config_from(cfg):
+    """A msst_tpu calibration config -> the port's config of the same name,
+    every field carried by name."""
+    cls = _CONFIGS[type(cfg).__name__]
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def ndt_calibrator_from(cal, device) -> ndt_calib.NdtCalibrator:
+    """msst_tpu's ``NdtCalibrator`` -> the port's on `device`: its config,
+    the pose it carries into the next frame and its score history."""
+    out = ndt_calib.NdtCalibrator(config_from(cal.cfg), device=device)
+    out.pose = from_numpy(cal.pose, out.device)
+    out.history = [float(h) for h in cal.history]
+    return out

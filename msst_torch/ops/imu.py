@@ -1,11 +1,13 @@
 """IMU preintegration (Forster-style), NavState prediction and the failure
 gates (port of ``msst_tpu.ops.imu``; the reference's gtsam
-``PreintegratedImuMeasurements`` use in ``imuPreintegration.cpp``)."""
+``PreintegratedImuMeasurements`` use in ``imuPreintegration.cpp``), and the
+Allan-variance noise identification of the IMU calibrator."""
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from . import se3
@@ -183,3 +185,70 @@ def failure_detected(state: NavState, bias: ImuBias,
     return ((torch.linalg.norm(state.v) > vel_limit)
             | (torch.linalg.norm(bias.acc) > bias_limit)
             | (torch.linalg.norm(bias.gyr) > bias_limit))
+
+
+# ---------------------------------------------------------------------------
+# Allan variance (imu_utils rebuild)
+# ---------------------------------------------------------------------------
+
+
+def allan_variance(samples: Tensor, dt: float, cluster_sizes) -> Tensor:
+    """Overlapping Allan variance of one axis at each cluster size m
+    (``AllanGyr::calcVariance``): avar(m) = sum_k (th[k+2m] - 2 th[k+m] +
+    th[k])^2 / (2 m^2 dt^2 (N + 1 - 2m)) over th, the float32 cumulative
+    sum of the (N,) samples times dt with a leading 0.  `cluster_sizes`
+    holds Python ints (or an int array), each at most N / 2."""
+    n = samples.shape[0]
+    theta = torch.cat([samples.new_zeros(1), torch.cumsum(samples, 0)]) * dt
+    out = []
+    for m in (int(v) for v in cluster_sizes):
+        d = theta[2 * m:] - 2.0 * theta[m:n + 1 - m] + theta[:n + 1 - 2 * m]
+        tau = torch.tensor(m, dtype=theta.dtype, device=theta.device) * dt
+        out.append(torch.sum(d * d) / (2.0 * tau * tau * max(n + 1 - 2 * m, 1)))
+    return torch.stack(out)
+
+
+def log_spaced_clusters(n_samples: int, n_clusters: int = 100) -> Tensor:
+    """Log-spaced cluster sizes from 1 to n_samples // 2 (the cluster factors
+    of ``allan_gyr.cpp``), distinct and ascending, as a CPU int32 tensor."""
+    m = np.unique(np.round(np.logspace(
+        0, np.log10(max(n_samples // 2 - 1, 2)), n_clusters)).astype(np.int32))
+    return torch.from_numpy(m)
+
+
+class AllanFit(NamedTuple):
+    """sigma^2(tau) = Q^2/tau^2 + N^2/tau + B^2 + K^2 tau + R^2 tau^2."""
+
+    Q: Tensor  # quantization
+    N: Tensor  # white noise (angle / velocity random walk): sigma at tau = 1
+    B: Tensor  # bias instability
+    K: Tensor  # rate random walk
+    R: Tensor  # rate ramp
+    white_noise: Tensor       # N (the source of imuAccNoise / imuGyrNoise)
+    bias_instability: Tensor  # min sigma over the curve
+
+
+def _lstsq_svd(a: Tensor, b: Tensor) -> Tensor:
+    """Least-squares solution of a x = b by the SVD, singular values below
+    eps * max(a.shape) of the largest dropped: ``jnp.linalg.lstsq``'s
+    method, the same on the CPU and the card (torch's own lstsq back ends
+    differ between the two, and this system is ill-conditioned)."""
+    u, s, vt = torch.linalg.svd(a, full_matrices=False)
+    rcond = torch.finfo(a.dtype).eps * max(a.shape)
+    keep = (s > 0) & (s >= rcond * s[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0)
+    return vt.T @ (s_inv * (u.T @ b))
+
+
+def fit_allan(taus: Tensor, avar: Tensor) -> AllanFit:
+    """Least-squares fit of the 5-coefficient Allan model, linear in the
+    squared coefficients and weighted by 1 / avar (the LSQ initialisation
+    of ``fitallan_gyr.cpp:67-109``)."""
+    t = taus
+    X = torch.stack([1.0 / t**2, 1.0 / t, torch.ones_like(t), t, t**2], dim=1)
+    w = 1.0 / torch.clamp(avar, min=1e-18)
+    c = torch.clamp(_lstsq_svd(X * w[:, None], avar * w), min=0.0)
+    return AllanFit(Q=torch.sqrt(c[0]), N=torch.sqrt(c[1]), B=torch.sqrt(c[2]),
+                    K=torch.sqrt(c[3]), R=torch.sqrt(c[4]),
+                    white_noise=torch.sqrt(c[1]),
+                    bias_instability=torch.sqrt(torch.min(avar)))

@@ -115,27 +115,36 @@ def query_plain(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, k: int = 5,
     A probe whose bucket equals an earlier probe's contributes nothing.  A
     slot without a neighbour holds inf and the index of the first lane
     (the first point of probe 0's bucket, or the last sorted point when
-    that bucket is empty), so every index lies in [0, N)."""
+    that bucket is empty), so every index lies in [0, N).  A masked query
+    has no neighbour, so only its probe 0 is looked up."""
     C = candidates_per_cell
-    Qn = q_xyz.shape[0]
     dev = q_xyz.device
     n = grid.xyz.shape[0]
-    hb, first_probe = probe_buckets(grid, q_xyz)
-    start = grid.bucket_start[hb]
-    count = grid.bucket_count[hb]
-    lane = torch.arange(C, dtype=torch.int32, device=dev)
-    cand = start[..., None] + lane                              # (Q, 27, C)
-    ok = lane < count[..., None]
-    cand = torch.where(ok, cand, n - 1).reshape(Qn, 27 * C).long()
-    ok = (ok & first_probe[..., None]).reshape(Qn, 27 * C)
-
-    diff = grid.xyz[cand] - q_xyz[:, None, :]                   # (Q, 27C, 3)
-    # written out in the kernel's order: (dx*dx + dy*dy) + dz*dz
-    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
-        + diff[..., 2] * diff[..., 2]
-    d2 = torch.where(ok & q_mask[:, None], d2, torch.inf)
-    d2k, sel = _small_topk_min(d2, k)
-    idx = torch.gather(cand, 1, sel)
+    offsets = torch.tensor(_OFFSETS[0], dtype=torch.int32, device=dev)
+    hb0 = _hash_coords(torch.floor(q_xyz / grid.cell_size).to(torch.int32)
+                       + offsets, grid.table_size).long()
+    first_lane = torch.where(grid.bucket_count[hb0] > 0,
+                             grid.bucket_start[hb0], n - 1).long()
+    idx = first_lane[:, None].repeat(1, k)
+    d2k = q_xyz.new_full((q_xyz.shape[0], k), math.inf)
+    live = torch.nonzero(q_mask).squeeze(1)
+    if live.numel():
+        q = q_xyz[live]
+        hb, first_probe = probe_buckets(grid, q)
+        start = grid.bucket_start[hb]
+        count = grid.bucket_count[hb]
+        lane = torch.arange(C, dtype=torch.int32, device=dev)
+        cand = start[..., None] + lane                          # (R, 27, C)
+        ok = lane < count[..., None]
+        cand = torch.where(ok, cand, n - 1).reshape(len(live), 27 * C).long()
+        ok = (ok & first_probe[..., None]).reshape(len(live), 27 * C)
+        diff = grid.xyz[cand] - q[:, None, :]                   # (R, 27C, 3)
+        # written out in the kernel's order: (dx*dx + dy*dy) + dz*dz
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+            + diff[..., 2] * diff[..., 2]
+        d2 = torch.where(ok, d2, torch.inf)
+        d2k[live], sel = _small_topk_min(d2, k)
+        idx[live] = torch.gather(cand, 1, sel)
     valid = torch.isfinite(d2k) & (d2k <= max_sqdist)
     return KnnResult(grid.orig_idx[idx], d2k, valid)
 

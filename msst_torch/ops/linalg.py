@@ -1,7 +1,8 @@
 """Small batched linear algebra (port of ``msst_tpu.ops.linalg``): the
 closed-form symmetric 3x3 eigendecomposition the voxel-feature fit runs over
-every map cell, the damped Cholesky solve of the 6x6 Gauss-Newton normal
-equations, and the weighted Kabsch fit of the ICP update."""
+every map cell, the adjugate 3x3 inverse of GICP's and NDT's per-point
+information matrices, the damped Cholesky solve of the 6x6 Gauss-Newton
+normal equations, and the weighted Kabsch fit of the ICP update."""
 
 from __future__ import annotations
 
@@ -95,6 +96,34 @@ def sym3x3_eigh(A: Tensor) -> tuple[Tensor, Tensor]:
     v_mid = v_mid / torch.clamp(torch.linalg.norm(v_mid, dim=-1, keepdim=True),
                                 min=1e-12)
     return vals, torch.stack([v_lo2, v_mid, v_hi2], dim=-2)
+
+
+def inv3x3(A: Tensor, eps: float = 1e-12) -> Tensor:
+    """Batched adjugate inverse of (..., 3, 3); a determinant below `eps`
+    in magnitude is replaced by +-eps (+eps where it is 0)."""
+    a = A
+    c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
+    c01 = a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2]
+    c02 = a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1]
+    c10 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
+    c11 = a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0]
+    c12 = a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2]
+    c20 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
+    c21 = a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1]
+    c22 = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    det = a[..., 0, 0] * c00 + a[..., 0, 1] * c10 + a[..., 0, 2] * c20
+    det = torch.where(torch.abs(det) < eps,
+                      torch.sign(det) * eps + (det == 0).to(det.dtype) * eps,
+                      det)
+    adj = torch.stack([torch.stack([c00, c01, c02], dim=-1),
+                       torch.stack([c10, c11, c12], dim=-1),
+                       torch.stack([c20, c21, c22], dim=-1)], dim=-2)
+    return adj / det[..., None, None]
+
+
+def solve3x3(A: Tensor, b: Tensor) -> Tensor:
+    """Batched solve of (..., 3, 3) @ x = (..., 3) through :func:`inv3x3`."""
+    return torch.einsum("...ij,...j->...i", inv3x3(A), b)
 
 
 def solve_psd(A: Tensor, b: Tensor, damping: float = 0.0) -> Tensor:

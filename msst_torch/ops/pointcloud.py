@@ -1,5 +1,6 @@
 """Fixed-capacity masked point clouds (port of ``msst_tpu.ops.pointcloud``):
-the container and stream compaction the LIO frontend and keyframe insert use."""
+the container and stream compaction the LIO frontend and keyframe insert
+use, and the box crop of the calibration tools."""
 
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ class Cloud(NamedTuple):
     def count(self) -> Tensor:
         return torch.sum(self.mask.to(torch.int32))
 
+    def with_mask(self, mask: Tensor) -> "Cloud":
+        return self._replace(mask=self.mask & mask)
+
     @staticmethod
     def create(xyz: Tensor, mask: Optional[Tensor] = None,
                attrs: Optional[Tensor] = None) -> "Cloud":
@@ -57,3 +61,13 @@ def compact(cloud: Cloud, capacity: Optional[int] = None) -> Cloud:
                                   ).index_copy_(0, dest, cloud.attrs)
     new_mask = torch.arange(n_out, device=cloud.xyz.device) < cloud.count
     return Cloud(xyz[:n_out], new_mask, attrs[:n_out])
+
+
+def crop_box(cloud: Cloud, lo, hi, keep_inside: bool = True) -> Cloud:
+    """Axis-aligned box filter: keep the points inside [lo, hi] (the
+    passthrough crop), or with keep_inside=False those outside it (the
+    ego-box carve-out)."""
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=cloud.xyz.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=cloud.xyz.device)
+    inside = torch.all((cloud.xyz >= lo) & (cloud.xyz <= hi), dim=-1)
+    return cloud.with_mask(inside if keep_inside else ~inside)

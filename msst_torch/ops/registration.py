@@ -5,17 +5,19 @@ against voxel feature maps (one structured lookup an iteration), and the
 reference-faithful form against 5-NN correspondences in the corner and surf
 map hash grids.  And the loop closure's point-to-point ICP
 (``icp_point2point_brute``) with its per-axis cost curvature
-(``icp_curvature_brute``).
+(``icp_curvature_brute``).  And the calibration tools' registrations:
+GICP against regularized point covariances and NDT against a voxel
+Gaussian map, each iteration's correspondences one launch of kernel B2.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import knn, linalg, se3, voxelmap
+from . import knn, linalg, se3, segments, voxel, voxelmap
 
 Tensor = torch.Tensor
 
@@ -461,3 +463,211 @@ def icp_curvature_brute(
         kappa.append((cost(perturb(i, 1.0)) + cost(perturb(i, -1.0))
                        - 2.0 * c0) / (d * d))
     return torch.stack(kappa), c0
+
+
+# ---------------------------------------------------------------------------
+# GICP (plane-to-plane, covariance-weighted)
+# ---------------------------------------------------------------------------
+
+
+def point_covariances(xyz: Tensor, mask: Tensor, grid: knn.HashGrid,
+                      k: int = 10, epsilon: float = 1e-3,
+                      candidates_per_cell: int = 24) -> Tensor:
+    """GICP-regularized per-point covariances (N, 3, 3): the k-NN scatter's
+    eigenvalues replaced by (eps, 1, 1) (Segal et al.), as Open3D does for
+    Multi_LiCa's GICP (``Calibration.py:292-345``).  `grid` is built over
+    `xyz` itself; its k-NN is kernel B2."""
+    res = knn.query(grid, xyz, mask, k=k,
+                    candidates_per_cell=candidates_per_cell)
+    nbrs = xyz[res.idx.long()]                              # (N, k, 3)
+    w = res.valid.to(xyz.dtype)[..., None]
+    cnt = torch.clamp(torch.sum(w, dim=1), min=1.0)
+    mu = torch.sum(nbrs * w, dim=1) / cnt
+    dev = (nbrs - mu[:, None, :]) * w
+    cov = torch.einsum("nki,nkj->nij", dev, dev) / cnt[..., None]
+    _, vecs = linalg.sym3x3_eigh(cov)
+    new_vals = torch.tensor([epsilon, 1.0, 1.0], dtype=xyz.dtype,
+                            device=xyz.device)
+    return torch.einsum("nki,k,nkj->nij", vecs, new_vals, vecs)
+
+
+class GicpResult(NamedTuple):
+    pose: se3.Pose
+    fitness: Tensor       # inlier RMSE (msst_tpu's field name)
+    matched_frac: Tensor  # matched fraction of the source
+    converged: Tensor     # iterations < max_iters
+    iters: Optional[Tensor] = None   # () int32 iterations run (the port's)
+
+
+def _gn_pose_update(moved: Tensor, r: Tensor, M: Tensor, w: Tensor,
+                    pose: se3.Pose, damping: float, step: float
+                    ) -> tuple[se3.Pose, Tensor]:
+    """One left-perturbation Gauss-Newton update on sum w r^T M r with
+    J = [-skew(moved) | I]: the new pose and |dx|^2."""
+    Jr = -se3.skew(moved)
+    eye = torch.eye(3, dtype=moved.dtype, device=moved.device).expand(Jr.shape)
+    J = torch.cat([Jr, eye], dim=2)                         # (N, 3, 6)
+    MJ = M @ J
+    H = torch.einsum("nik,nij,n->kj", J, MJ, w)
+    g = torch.einsum("nik,ni,n->k", MJ, r, w)
+    dx = -step * linalg.solve_psd(H, g, damping=damping)
+    dq = se3.so3_exp_quat(dx[:3])
+    new_pose = se3.Pose(se3.quat_normalize(se3.quat_mul(dq, pose.q)),
+                        se3.quat_rotate(dq, pose.t) + dx[3:])
+    return new_pose, torch.sum(dx * dx)
+
+
+def gicp(src_xyz: Tensor, src_mask: Tensor, src_cov: Tensor,
+         tgt_grid: knn.HashGrid, tgt_xyz: Tensor, tgt_cov: Tensor,
+         init_pose: se3.Pose, max_iters: int = 50,
+         max_corr_dist: float = 1.0, transformation_eps: float = 1e-8,
+         candidates_per_cell: int = 16) -> GicpResult:
+    """Generalized ICP (msst_tpu's ``gicp``): Gauss-Newton on
+    sum r^T (Cq + R Cp R^T)^-1 r with left-perturbation se(3) updates, each
+    iteration's 1-NN correspondences one launch of kernel B2.  The loop runs
+    on the host and reads one stop flag (|dx|^2 > eps) an iteration, as
+    msst_tpu's ``lax.while_loop`` tests it."""
+    max_sq = max_corr_dist * max_corr_dist
+    pose, it = init_pose, 0
+    while it < max_iters:
+        R = se3.quat_to_matrix(pose.q)
+        moved = pose.apply(src_xyz)
+        res = knn.query(tgt_grid, moved, src_mask, k=1,
+                        candidates_per_cell=candidates_per_cell,
+                        max_sqdist=max_sq)
+        ok = res.valid[:, 0] & src_mask
+        j = res.idx[:, 0].long()
+        M = linalg.inv3x3(tgt_cov[j] + R @ src_cov @ R.T)
+        pose, delta = _gn_pose_update(moved, moved - tgt_xyz[j], M,
+                                      ok.to(src_xyz.dtype), pose, 1e-6, 1.0)
+        it += 1
+        if not bool(delta > transformation_eps):
+            break
+
+    moved = pose.apply(src_xyz)
+    res = knn.query(tgt_grid, moved, src_mask, k=1,
+                    candidates_per_cell=candidates_per_cell, max_sqdist=max_sq)
+    ok = res.valid[:, 0] & src_mask
+    n_ok = torch.sum(ok.to(torch.int32))
+    frac = n_ok / torch.clamp(torch.sum(src_mask.to(torch.int32)), min=1)
+    rmse = torch.sqrt(torch.sum(torch.where(ok, res.sqdist[:, 0], 0.0))
+                      / torch.clamp(n_ok, min=1))
+    return GicpResult(pose, rmse, frac,
+                      torch.tensor(it < max_iters, device=src_xyz.device),
+                      torch.tensor(it, dtype=torch.int32,
+                                   device=src_xyz.device))
+
+
+# ---------------------------------------------------------------------------
+# NDT (point-to-distribution, voxel Gaussian map)
+# ---------------------------------------------------------------------------
+
+
+class NdtMap(NamedTuple):
+    means: Tensor     # (V, 3)
+    inv_cov: Tensor   # (V, 3, 3)
+    mask: Tensor      # (V,)
+    grid: knn.HashGrid  # over means, cell = resolution
+
+
+_BIG_CELL = 2**30
+_SYM_IU, _SYM_JU = (0, 0, 0, 1, 1, 2), (0, 1, 2, 1, 2, 2)
+_SYM_FULL = (0, 1, 2, 1, 3, 4, 2, 4, 5)
+
+
+def build_ndt_map(xyz: Tensor, mask: Tensor, resolution: float,
+                  capacity: int, min_points: int = 5,
+                  table_size: int = 8192) -> NdtMap:
+    """Voxelize the target into per-cell Gaussians (mean + regularized
+    covariance), like ``pcl::NormalDistributionsTransform``'s target grid.
+
+    The voxels' moments are sums of positions minus their cell centre, as
+    msst_tpu's; each voxel's rows are added in row order
+    (``segments.segment_sum``), where msst_tpu differences float32 prefix
+    sums over the whole sorted cloud."""
+    c = voxel.voxel_coords(xyz, resolution)
+    cx, cy, cz = (torch.where(mask, c[:, i], _BIG_CELL) for i in range(3))
+    order = voxel._stable_order(cx, cy, cz)
+    cell_s = torch.stack([cx[order], cy[order], cz[order]], dim=1)
+    valid_s = mask[order]
+    xyz_s = xyz[order]
+    new_voxel = torch.any(cell_s != torch.roll(cell_s, 1, dims=0), dim=1)
+    new_voxel[0] = True
+    new_voxel = new_voxel & valid_s
+    seg = torch.cumsum(new_voxel.to(torch.int64), 0) - 1
+    seg = torch.where(valid_s, seg, capacity)
+    w = valid_s.to(xyz.dtype)
+    lo, _ = segments.segment_boundaries(seg, capacity)
+    center_s = (cell_s.to(xyz.dtype) + 0.5) * resolution
+    r_s = (xyz_s - center_s) * w[:, None]
+    outer6 = r_s[:, _SYM_IU] * r_s[:, _SYM_JU]
+    moments = segments.segment_sum(
+        torch.cat([r_s, outer6, w[:, None]], dim=1), seg, capacity)
+    rsums, sq6, cnt = moments[:, :3], moments[:, 3:9], moments[:, 9]
+    # an empty voxel takes the row its (empty) run starts at, as msst_tpu's
+    cell_v = cell_s[torch.clamp(lo, max=cell_s.shape[0] - 1)]
+    denom = torch.clamp(cnt, min=1.0)
+    rmu = rsums / denom[:, None]
+    mu = (cell_v.to(xyz.dtype) + 0.5) * resolution + rmu
+    sq = sq6[:, _SYM_FULL].reshape(capacity, 3, 3)
+    cov = sq / denom[:, None, None] - torch.einsum("ni,nj->nij", rmu, rmu)
+    eye = torch.eye(3, dtype=xyz.dtype, device=xyz.device)
+    # sensor-noise floor before the eigenvalue clamp (1 % of the cell): a
+    # cell of coplanar points would otherwise get a ~1e6 inverse
+    cov = cov + (0.01 * resolution) ** 2 * eye
+    # Magnusson regularization: eigenvalues at least 1e-2 of the largest
+    vals, vecs = linalg.sym3x3_eigh(cov)
+    lam_max = torch.clamp(vals[:, 2], min=1e-6)
+    vals = torch.maximum(vals, 0.01 * lam_max[:, None])
+    cov = torch.einsum("nki,nk,nkj->nij", vecs, vals, vecs)
+    ok = cnt >= min_points
+    inv_cov = linalg.inv3x3(cov + 1e-6 * eye)
+    grid = knn.build(mu, ok, cell_size=resolution, table_size=table_size)
+    return NdtMap(mu, inv_cov, ok, grid)
+
+
+class NdtResult(NamedTuple):
+    pose: se3.Pose
+    score: Tensor
+    converged: Tensor
+    iters: Optional[Tensor] = None   # () int32 iterations run (the port's)
+
+
+def ndt(src_xyz: Tensor, src_mask: Tensor, ndt_map: NdtMap,
+        init_pose: se3.Pose, max_iters: int = 35, resolution: float = 1.0,
+        transformation_eps: float = 1e-8, step_size: float = 1.0,
+        candidates_per_cell: int = 8) -> NdtResult:
+    """Gauss-Newton NDT (msst_tpu's ``ndt``): each source point is matched
+    to the nearest voxel Gaussian within 1.5 resolutions (one launch of
+    kernel B2) and pulled toward its mean under the voxel's inverse
+    covariance.  A host loop reading one stop flag an iteration."""
+    max_sq = resolution * resolution * 2.25
+    pose, it = init_pose, 0
+    while it < max_iters:
+        moved = pose.apply(src_xyz)
+        res = knn.query(ndt_map.grid, moved, src_mask, k=1,
+                        candidates_per_cell=candidates_per_cell,
+                        max_sqdist=max_sq)
+        j = res.idx[:, 0].long()
+        ok = res.valid[:, 0] & src_mask & ndt_map.mask[j]
+        pose, delta = _gn_pose_update(moved, moved - ndt_map.means[j],
+                                      ndt_map.inv_cov[j],
+                                      ok.to(src_xyz.dtype), pose, 1e-4,
+                                      step_size)
+        it += 1
+        if not bool(delta > transformation_eps):
+            break
+
+    moved = pose.apply(src_xyz)
+    res = knn.query(ndt_map.grid, moved, src_mask, k=1,
+                    candidates_per_cell=candidates_per_cell, max_sqdist=max_sq)
+    ok = res.valid[:, 0] & src_mask
+    j = res.idx[:, 0].long()
+    r = moved - ndt_map.means[j]
+    mahal = torch.einsum("ni,nij,nj->n", r, ndt_map.inv_cov[j], r)
+    score = torch.sum(torch.where(ok, torch.exp(-0.5 * mahal), 0.0)) / \
+        torch.clamp(torch.sum(src_mask.to(torch.int32)), min=1)
+    return NdtResult(pose, score,
+                     torch.tensor(it < max_iters, device=src_xyz.device),
+                     torch.tensor(it, dtype=torch.int32,
+                                  device=src_xyz.device))

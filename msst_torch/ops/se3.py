@@ -183,6 +183,10 @@ def so3_log(q: Tensor) -> Tensor:
     return k * v
 
 
+def so3_exp_matrix(w: Tensor) -> Tensor:
+    return quat_to_matrix(so3_exp_quat(w))
+
+
 def skew(v: Tensor) -> Tensor:
     """(..., 3) -> (..., 3, 3) cross-product matrix."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -222,6 +226,10 @@ class Pose(NamedTuple):
     def identity(shape=(), device=None) -> "Pose":
         return Pose(quat_identity(shape, device),
                     torch.zeros(tuple(shape) + (3,), device=device))
+
+    @staticmethod
+    def from_rpy_xyz(rpy: Tensor, xyz: Tensor) -> "Pose":
+        return Pose(quat_from_rpy(rpy), xyz)
 
     @staticmethod
     def from_vec6(v: Tensor) -> "Pose":

@@ -19,6 +19,12 @@ _INVALID = 2**31 - 1
 _PACKED_INVALID = 2**30   # sentinel key of voxel_downsample_packed
 
 
+def voxel_coords(xyz: Tensor, leaf: float) -> Tensor:
+    """Integer voxel cell (..., 3) of each point: floor(xyz / leaf), the
+    division IEEE on every device."""
+    return torch.floor(div(xyz, leaf)).to(torch.int32)
+
+
 def _stable_order(*keys: Tensor) -> Tensor:
     """Permutation sorting rows lexicographically by ``keys`` (primary first),
     stable in the input order like ``lax.sort``: one stable sort per key,
