@@ -2,6 +2,14 @@
 ``msst``, with the same arguments and outputs).
 
     msst-torch lio-sim [--scans N] [--horizon H] [--loop]
+    msst-torch lio-kitti DIR [--rings 64] [--horizon 1800] [--scans N] [--loop]
+                         [--gps] [--tiny] [--max-points N] [--output F]
+                         [--stats-json F] [--viz-every N] [--viz-dir D]
+    msst-torch lio-bag BAG --cloud-topic T --imu-topic T [--scans N] [--loop]
+                       [--tiny] [--sensor auto|velodyne|ouster|livox]
+                       [--output F] [--viz-every N] [--viz-dir D]
+    msst-torch viz-serve [DIR] [--port 8642]
+    msst-torch decode-pcap IN.pcap OUT.pcd [--max-packets 100000]
     msst-torch calibrate TARGET.pcd SOURCE.pcd [...] [--method lica|auto|ndt]
                          [--output calibration.json]
     msst-torch allan IMU.csv [--name imu] [--output imu_noise.yaml]
@@ -12,6 +20,19 @@
 
 ``heading`` and ``track`` print one JSON line a frame; frame i is at
 0.1 * (i + 1) s and draws from ``torch.Generator(device).manual_seed(i)``.
+
+``lio-kitti`` replays a KITTI raw drive (velodyne .bin sweeps, OXTS IMU and
+GNSS) at the HDL-64 profile (64 x 1800, 150,000 points; ``--tiny`` for
+msst's small CPU profile), writes the trajectory in the KITTI format and
+reports the ATE and the KITTI drift against the OXTS track; ``--gps`` fuses
+the OXTS fix as GPS factors once its datum has locked (30 fixes).
+``lio-bag`` replays a rosbag 2.0 (PointCloud2 + Imu topics; Velodyne,
+Ouster or Livox point layouts).  With ``--viz-every N`` both rewrite
+``global_map.ply``, ``trajectory.json`` and ``viewer.html`` in ``--viz-dir``
+every N scans (and ``trajectory.png`` where matplotlib is installed), which
+``viz-serve`` serves with live reload.  ``decode-pcap`` decodes a pcap of
+1206-byte Velodyne-style packets into a PCD with the native decoder
+(``msst_torch/native/msst_native.cc``, built with g++ at its first use).
 
 Every command runs on the card; ``--device cpu`` runs it on the CPU.  Where
 no CUDA device is present and no ``--device cpu`` is given, it raises.
@@ -187,6 +208,225 @@ def cmd_track(args):
             srv.stop()
 
 
+GPS_DATUM_SCANS = 30
+
+
+def _lio_run(scans_iter, params=None, loop=False, gps=False, progress=True,
+             viz_every=0, viz_dir=None, device="cuda"):
+    """Feed scan dicts through ``LioSam(params, device)``.  viz_every /
+    viz_dir: streaming visualization (the live RViz surface of the
+    reference: global map @0.2 Hz + path publishers,
+    ``mapOptmization.cpp:421-490``): every N scans the current global map
+    and trajectory are rewritten under viz_dir.  Like the reference's
+    subscriber gate (``utility.h:292`` publishes only when someone
+    listens), the export runs only when requested."""
+    from .models.liosam import LioSam
+    from .models.liosam.params import LioParams
+
+    lio = LioSam(params or LioParams(loop_closure_enabled=loop), device=device)
+    n = 0
+    degen_flags = []  # per-scan degeneracy flags on the device, read at the end
+    # GPS -> odom frame datum (the navsat_transform role,
+    # module_navsat.launch:8-19): the fix stream's local frame is anchored at
+    # its own (noisy) first fix, so fusing it raw biases every factor by that
+    # fix's error.  Wait-for-datum: collect (estimate - fix) over the first
+    # GPS scans, while the estimator still tracks confidently, then freeze
+    # the mean as the translation datum.  Translation-only: like the
+    # reference (useImuHeadingInitialization), the odometry frame's yaw comes
+    # from the absolute IMU attitude, so the frames are co-oriented.
+    datum_pairs: list = []
+    gps_datum = None
+    png_skip_said = False
+    for s in scans_iter:
+        kwargs = {k: s[k] for k in ("imu_t", "imu_gyro", "imu_acc", "imu_rpy")
+                  if k in s and s[k] is not None}
+        fix = s.get("gps_xyz") if gps else None
+        if fix is not None and gps_datum is not None:
+            kwargs["gps_xyz"] = (fix + gps_datum).astype(np.float32)
+            kwargs["gps_sigma"] = s.get("gps_sigma", np.full(3, 2.0, np.float32))
+        out = lio.process_scan(s["xyz"], s["ring"], s["time_rel"],
+                               s["scan_start"], **kwargs)
+        if fix is not None and gps_datum is None:
+            datum_pairs.append(out.pose6[3:6].cpu().numpy() - fix)
+            if len(datum_pairs) >= GPS_DATUM_SCANS:
+                gps_datum = np.mean(datum_pairs, axis=0)
+                print(f"gps datum locked after {len(datum_pairs)} fixes: "
+                      f"{np.round(gps_datum, 3)}", file=sys.stderr)
+        degen_flags.append(out.degenerate)
+        n += 1
+        if progress and n % 10 == 0:
+            p = out.pose6.cpu().numpy()
+            print(f"scan {n}: pos=({p[3]:+.2f},{p[4]:+.2f},{p[5]:+.2f}) "
+                  f"kf={int(out.kf_count)}", file=sys.stderr)
+        if viz_every and n % viz_every == 0:
+            png_skip_said |= _stream_viz(lio, viz_dir or "viz_live", n,
+                                         png_skip_said)
+    if viz_every and viz_dir:
+        _stream_viz(lio, viz_dir, n, png_skip_said)
+    # run stats: how often the scan-matching degeneracy projection fired
+    # (the reference propagates this flag in odometry covariance[0],
+    # mapOptmization.cpp:1696-1699), consumed by --stats-json; the flags
+    # come back in one copy
+    n_degen = int(torch.stack(degen_flags).sum()) if degen_flags else 0
+    lio.last_run_stats = {
+        "scans": n,
+        "degenerate_scans": n_degen,
+        "loops_closed": int(lio.state.n_loop),
+    }
+    return lio
+
+
+def _stream_viz(lio, directory, n, png_skip_said=False):
+    """One live-visualization tick: overwrite global_map.ply (write then
+    rename), trajectory.json and, where matplotlib is installed,
+    trajectory.png; viewer.html is written once.  Where matplotlib is
+    missing it says so on stderr unless `png_skip_said`; returns whether
+    it did."""
+    import os
+
+    from .utils import viz, viz_html
+
+    said = False
+    os.makedirs(directory, exist_ok=True)
+    m = lio.save_map()
+    pts = np.concatenate([m["corner_map"], m["surf_map"]]) \
+        if len(m["corner_map"]) or len(m["surf_map"]) else np.zeros((0, 3))
+    tmp = os.path.join(directory, ".global_map.ply.tmp")
+    viz.write_ply(tmp, pts)
+    os.replace(tmp, os.path.join(directory, "global_map.ply"))
+    est = lio.trajectory.as_matrices()
+    if len(est):
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            if not png_skip_said:
+                print("viz: matplotlib is not installed; trajectory.png is "
+                      "skipped", file=sys.stderr)
+                said = True
+        else:
+            viz.plot_trajectory(os.path.join(directory, "trajectory.png"),
+                                est[:, :3, 3])
+        viz_html.write_trajectory_json(
+            os.path.join(directory, "trajectory.json"), est[:, :3, 3])
+    if not os.path.exists(os.path.join(directory, "viewer.html")):
+        viz_html.write_viewer(directory)  # `msst-torch viz-serve DIR`
+    print(f"viz: scan {n} -> {directory}/global_map.ply "
+          f"({len(pts)} pts)", file=sys.stderr)
+    return said
+
+
+def _write_kitti_trajectory(path, traj):
+    np.savetxt(path, traj[:, :3, :].reshape(len(traj), 12), fmt="%.6f")
+
+
+def cmd_lio_kitti(args):
+    from .models.calibration import device as device_mod
+    from .models.liosam.params import LioParams, tiny_params
+    from .utils.io_kitti import KittiRawDrive
+
+    dev = device_mod.resolve(args.device)
+    drive = KittiRawDrive(args.dir, n_rings=args.rings)
+    it = drive.iter_scans(with_gps=args.gps)
+    if args.scans:
+        import itertools
+        it = itertools.islice(it, args.scans)
+    if args.tiny:
+        p = tiny_params(n_scan=args.rings, loop_closure_enabled=args.loop,
+                        max_points=args.max_points or 32768)
+    else:
+        p = LioParams(n_scan=args.rings, horizon_scan=args.horizon,
+                      max_points=args.max_points or 150000,
+                      loop_closure_enabled=args.loop)
+    lio = _lio_run(it, params=p, loop=args.loop, gps=args.gps,
+                   viz_every=args.viz_every, viz_dir=args.viz_dir, device=dev)
+    traj = lio.trajectory.as_matrices()
+    _write_kitti_trajectory(args.output, traj)
+    print(f"{len(traj)} poses -> {args.output} (KITTI format)")
+
+    # accuracy report against the OXTS ground truth when available
+    if drive.oxts is not None and len(traj) >= 2:
+        from scipy.spatial.transform import Rotation as Rs
+
+        from .utils import kitti_eval as KE
+
+        enu = drive.gps_enu()
+        t_gt, _, _, rpy = drive.imu_samples()
+        gt = []
+        for k in range(len(traj)):
+            ts = drive.velo_times[k]
+            i = int(np.clip(np.searchsorted(t_gt, ts), 0, len(enu) - 1))
+            T = np.eye(4)
+            T[:3, :3] = Rs.from_euler("xyz", rpy[i]).as_matrix()
+            T[:3, 3] = enu[i]
+            gt.append(T)
+        gt = np.stack(gt)
+        print(f"ATE RMSE: {KE.ate_rmse(traj, gt) * 100:.1f} cm")
+        s = KE.kitti_summary(traj, gt)
+        if s["n_segments"]:
+            print(f"KITTI drift: {s['t_err_pct']:.2f} % translation, "
+                  f"{s['r_err_deg_per_m']:.4f} deg/m rotation "
+                  f"({s['n_segments']} segments)")
+
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump(lio.last_run_stats, f)
+
+
+def _lio_sensor(sensor: str) -> str:
+    """CLI --sensor auto -> the params default (column binning only differs
+    for livox, which has no auto signature; explicit flag required there)."""
+    return "velodyne" if sensor == "auto" else sensor
+
+
+def cmd_lio_bag(args):
+    from .models.calibration import device as device_mod
+    from .models.liosam.params import LioParams, tiny_params
+    from .utils.io_rosbag import iter_lio_inputs
+
+    dev = device_mod.resolve(args.device)
+    it = iter_lio_inputs(args.bag, args.cloud_topic, args.imu_topic,
+                         sensor=args.sensor)
+    if args.scans:
+        import itertools
+        it = itertools.islice(it, args.scans)
+    params = None
+    if args.tiny:
+        params = tiny_params(loop_closure_enabled=args.loop,
+                             sensor=_lio_sensor(args.sensor))
+    elif args.sensor != "auto":
+        params = LioParams(sensor=_lio_sensor(args.sensor))
+    lio = _lio_run(it, params=params, loop=args.loop,
+                   viz_every=args.viz_every, viz_dir=args.viz_dir, device=dev)
+    traj = lio.trajectory.as_matrices()
+    _write_kitti_trajectory(args.output, traj)
+    print(f"{len(traj)} poses -> {args.output}")
+
+
+def cmd_viz_serve(args):
+    """Interactive map viewer (the reference's RViz surface,
+    ``mapOptmization.cpp:421-490,723-774``): serves viewer.html + the
+    streamed global_map.ply / trajectory.json, polling for overwrites."""
+    from .models.calibration import device as device_mod
+    from .utils import viz_html
+
+    device_mod.resolve(args.device)
+    viz_html.serve(args.dir, port=args.port)
+
+
+def cmd_decode_pcap(args):
+    from .models.calibration import device as device_mod
+    from .utils import native, packets
+    from .utils.io_pcd import write_pcd
+
+    device_mod.resolve(args.device)
+    pk, stamps = native.read_pcap(args.pcap, args.max_packets)
+    if not len(pk):
+        sys.exit(f"no 1206-byte packets in {args.pcap}")
+    xyz, ring, trel, inten = packets.packets_to_scan(pk, stamps=stamps)
+    write_pcd(args.output, xyz, inten)
+    print(f"{len(pk)} packets, {len(xyz)} points -> {args.output}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="msst-torch",
@@ -204,6 +444,56 @@ def main(argv=None):
     s.add_argument("--horizon", type=int, default=720)
     s.add_argument("--loop", action="store_true")
     s.set_defaults(fn=cmd_lio_sim)
+
+    s = parser("lio-kitti")
+    s.add_argument("dir")
+    s.add_argument("--rings", type=int, default=64)
+    s.add_argument("--horizon", type=int, default=1800)
+    s.add_argument("--scans", type=int, default=0)
+    s.add_argument("--loop", action="store_true")
+    s.add_argument("--gps", action="store_true",
+                   help="fuse the OXTS GNSS fix as GPS factors (the"
+                   " reference's gpsTopic path, mapOptmization.cpp:1397-1475)")
+    s.add_argument("--tiny", action="store_true",
+                   help="small-capacity params (CPU-friendly)")
+    s.add_argument("--output", default="trajectory_kitti.txt")
+    s.add_argument("--stats-json", default=None,
+                   help="write run stats (degenerate scans, loops) as JSON")
+    s.add_argument("--max-points", type=int, default=0,
+                   help="input cloud capacity override (0 = profile default)")
+    s.add_argument("--viz-every", type=int, default=0,
+                   help="write global_map.ply + trajectory.json every N scans")
+    s.add_argument("--viz-dir", default="viz_live")
+    s.set_defaults(fn=cmd_lio_kitti)
+
+    s = parser("lio-bag")
+    s.add_argument("bag")
+    s.add_argument("--cloud-topic", required=True)
+    s.add_argument("--imu-topic", required=True)
+    s.add_argument("--scans", type=int, default=0)
+    s.add_argument("--loop", action="store_true")
+    s.add_argument("--tiny", action="store_true",
+                   help="small-capacity params (CPU-friendly)")
+    s.add_argument("--sensor", default="auto",
+                   choices=("auto", "velodyne", "ouster", "livox"),
+                   help="vendor point format (the reference's `sensor` "
+                        "param, imageProjection.cpp:207-233)")
+    s.add_argument("--output", default="trajectory.txt")
+    s.add_argument("--viz-every", type=int, default=0,
+                   help="write global_map.ply + trajectory.json every N scans")
+    s.add_argument("--viz-dir", default="viz_live")
+    s.set_defaults(fn=cmd_lio_bag)
+
+    s = parser("viz-serve")
+    s.add_argument("dir", nargs="?", default="viz_live")
+    s.add_argument("--port", type=int, default=8642)
+    s.set_defaults(fn=cmd_viz_serve)
+
+    s = parser("decode-pcap")
+    s.add_argument("pcap")
+    s.add_argument("output")
+    s.add_argument("--max-packets", type=int, default=100000)
+    s.set_defaults(fn=cmd_decode_pcap)
 
     s = parser("calibrate")
     s.add_argument("target")

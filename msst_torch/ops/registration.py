@@ -53,6 +53,7 @@ class ScanToMapResult(NamedTuple):
     iterations: Tensor  # () int32
     n_corner: Tensor    # () int32 inlier corners at the last iteration
     n_surf: Tensor      # () int32 inlier surfs
+    lookups: int = 0    # voxel-map lookups taken (host count; 0 on 5-NN)
 
 
 def scan_to_map_voxel(
@@ -101,13 +102,14 @@ def scan_to_map_voxel(
     hit = None
     pose_ref = init_pose
     need = True
-    it = 0
+    it = lookups = 0
     while it < max_iters:
         R, dRr, dRp, dRy = _rot_and_derivs(pose[:3])
         w = pts @ R.T + pose[3:]
         if need or not freeze:
             hit = voxelmap.lookup_cat(corner_vmap, surf_vmap, w, pmask, Qc)
             pose_ref = pose
+            lookups += 1
 
         dnorm = torch.linalg.norm(hit.direction, dim=1)
         hit_is_line = dnorm < voxelmap.LINE_DIR_GATE
@@ -163,7 +165,7 @@ def scan_to_map_voxel(
             break
     return ScanToMapResult(pose, degenerate, done,
                            torch.tensor(it, dtype=torch.int32, device=dev),
-                           nc, ns)
+                           nc, ns, lookups)
 
 
 # ---------------------------------------------------------------------------

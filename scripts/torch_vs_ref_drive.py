@@ -19,6 +19,27 @@ and a last JSON line gives the largest pose gap of those single steps and
 how many keyframe decisions and Gauss-Newton iteration counts differ: the
 packages' agreement without the drive's own amplification.
 
+``--kitti DIR`` drives each package's ``lio-kitti`` command instead, in
+this process, at its own HDL-64 profile (64 x 1800, 150,000 points, the
+default 8-scan boot) over chip_smoke.py's synthetic KITTI raw drive (phase
+13a; written into DIR unless it is there, ``--kitti-motion`` for
+motion-true sweeps instead of static snapshots), for its first ``--scans``
+sweeps; each line holds the command's ATE line and the trajectory's
+errors against the simulator's truth under bench.py's definitions.
+
+``--bag DIR`` runs each package's ``lio-bag`` loop (its CLI's ``_lio_run``
+at the command's profile, ``LioParams(loop_closure_enabled=False)``) over
+the bench drive (16 rings at ``--horizon`` columns, seed 7, ``--scans``
+sweeps) written as chip_smoke.py's Ouster rosbag (phase 13b; into DIR
+unless it is there) and read back by the port's ``iter_lio_inputs``
+(equal to msst_tpu's); each line holds the errors against the truth
+(chip_smoke.py phase 13b's: bench.py's, and the ATE) and the yaw of the attitude the reader gave the first scan against the
+truth's.  ``--perturb SEED`` applies to the read scans, ``--threads N``
+sets the port's torch threads (its CPU sums depend on them), and
+``--attitude stamp`` gives every scan the attitude of the bag's IMU
+message nearest its stamp instead of the reader's (the last of its
+window); ``--steps K`` compares single steps as on the bench drive.
+
 ``--packages`` drives only the packages named.  ``--perturb SEED`` scales
 every input point coordinate by 1 + 2^-23 N(0, 1) (numpy's generator,
 seeded), a rounding-level change of the input.  ``--reference-sums``
@@ -91,6 +112,168 @@ def _use_reference_sums():
     tseg.segment_sum = segment_sum
 
 
+def _reference_binding(jax, steps=0):
+    """msst_tpu's step through a jitted step that binds ``inp`` while it
+    traces (msst_tpu's ``odometry_core`` reads that undefined name).  With
+    `steps` K, every K-th step's state before it, packed scan and output
+    go into the returned list, as numpy."""
+    from msst_tpu.models.liosam import mapping as jmap
+    from msst_tpu.models.liosam import pipeline as jpipe
+
+    def reference_step(state, points, aux, p):
+        ps = jmap.prepare_scan(jmap.unpack_step_input(points, aux, p), p)
+        jmap.inp = ps
+        try:
+            return jmap.odometry_core(state, ps, p)
+        finally:
+            del jmap.inp
+
+    jstep = jax.jit(reference_step, static_argnames=("p",))
+    recorded, n_calls = [], [0]
+
+    def recording_step(state, points, aux, p):
+        out = jstep(state, points, aux, p)
+        n_calls[0] += 1
+        if steps and n_calls[0] % steps == 0:
+            recorded.append(jax.tree.map(np.asarray, (state, points, aux,
+                                                      out[1])))
+        return out
+
+    jpipe.odometry_step_packed = recording_step
+    return recorded
+
+
+def _single_steps(recorded, p):
+    """The port's step from each recorded msst_tpu state and scan: one
+    JSON line with the largest and median pose gap to msst_tpu's output
+    and how many keyframe decisions and iteration counts differ."""
+    import torch
+
+    from msst_torch import convert
+    from msst_torch.models.liosam import mapping as tmap
+
+    gaps, kf_diff, it_diff = [], 0, 0
+    for state, points, aux, want in recorded:
+        _, got = tmap.odometry_step_packed(
+            convert.from_numpy(state, "cpu"), torch.from_numpy(points.copy()),
+            torch.from_numpy(aux.copy()), p)
+        gaps.append(float(np.abs(got.pose6.numpy() - want.pose6).max()))
+        kf_diff += bool(got.is_keyframe) != bool(want.is_keyframe)
+        it_diff += int(got.s2m_iterations) != int(want.s2m_iterations)
+    print(json.dumps({"steps_compared": len(gaps),
+                      "max_pose_gap": max(gaps),
+                      "median_pose_gap": float(np.median(gaps)),
+                      "keyframe_decisions_differ": kf_diff,
+                      "iterations_differ": it_diff}), flush=True)
+
+
+def _bag(args) -> int:
+    """Each package's lio-bag loop over the reader's scans of the bag."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import torch
+    from scipy.spatial.transform import Rotation as Rs
+
+    import chip_smoke
+    from msst_torch import cli as tcli
+    from msst_torch.utils import io_rosbag, sim
+    from msst_tpu import cli as jcli
+
+    if args.threads:
+        torch.set_num_threads(args.threads)
+    bag = os.path.join(args.bag, "bench.bag")
+    data = sim.make_dataset(sim.World(), chip_smoke._bench_trajectory(),
+                            n_scans=args.scans, scan_dt=0.1, n_scan=16,
+                            horizon=args.horizon, seed=7)
+    if not os.path.exists(bag):
+        os.makedirs(args.bag, exist_ok=True)
+        chip_smoke._write_ouster_bag(bag, data)
+    scans = list(io_rosbag.iter_lio_inputs(bag, "/points", "/imu"))
+    if args.attitude == "stamp":
+        imu = [io_rosbag.decode_imu(raw) for _, _, _, raw in
+               io_rosbag.RosbagReader(bag).messages({"/imu"})]
+        t = np.array([m["stamp"] for m in imu])
+        for s in scans:
+            q = imu[int(np.argmin(np.abs(t - s["scan_start"])))]["orientation"]
+            s["imu_rpy"] = Rs.from_quat([q[1], q[2], q[3], q[0]]).as_euler(
+                "xyz").astype(np.float32)
+    if args.perturb is not None:
+        scans = chip_smoke._perturbed(scans, args.perturb)
+    gt = np.stack([s["gt_pose"][:3, 3] for s in data])
+    heading0 = float(np.arctan2(data[0]["gt_pose"][1, 0],
+                                data[0]["gt_pose"][0, 0]))
+    recorded = _reference_binding(jax, args.steps)
+    for name in args.packages.split(","):
+        t0 = time.perf_counter()
+        if name == "msst_tpu":
+            lio = jcli._lio_run(iter(scans), progress=False)
+        else:
+            lio = tcli._lio_run(iter(scans), progress=False, device="cpu")
+        res = {"package": name, "command": "lio-bag", "scans": len(scans),
+               "perturb": args.perturb, "attitude": args.attitude,
+               "torch_threads": torch.get_num_threads(),
+               "reader_yaw_offset_rad": float(scans[0]["imu_rpy"][2])
+               - heading0,
+               "keyframes": int(lio.state.kf.count),
+               "seconds": time.perf_counter() - t0}
+        est = lio.trajectory.as_matrices()
+        keys = ("max_err_m", "final_err_m", "drift_pct_per_m", "path_len_m")
+        res.update(zip(keys, chip_smoke._errors(est, gt)))
+        res["ate_m"] = chip_smoke._bag_ate(est, gt)
+        print(json.dumps(res), flush=True)
+    if recorded:
+        from msst_torch.models.liosam.params import LioParams
+
+        _single_steps(recorded, LioParams(loop_closure_enabled=False))
+    return 0
+
+
+def _kitti(args) -> int:
+    """Each package's lio-kitti command over the synthetic KITTI drive."""
+    import contextlib
+    import io
+
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import chip_smoke
+    from msst_torch import cli as tcli
+    from msst_tpu import cli as jcli
+
+    traj = chip_smoke._bench_trajectory()
+    root = args.kitti
+    drive = os.path.join(root, "2011_09_26", "2011_09_26_drive_0001_sync")
+    if not os.path.isdir(drive):
+        chip_smoke._write_kitti_drive(root, n_scans=args.scans,
+                                      motion=args.kitti_motion)
+    gt = np.stack([traj.pose(i * 0.1)[:3, 3] for i in range(args.scans)])
+    argv = ["lio-kitti", drive, "--scans", str(args.scans)]
+    _reference_binding(jax)
+    for name in args.packages.split(","):
+        out = os.path.join(root, f"trajectory_{name}.txt")
+        if name == "msst_tpu":
+            main_fn, cmd = jcli.main, argv + ["--output", out]
+        else:
+            main_fn, cmd = tcli.main, argv + ["--output", out, "--device",
+                                             "cpu"]
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            main_fn(cmd)
+        est = chip_smoke._kitti_poses(out)
+        res = {"package": name, "command": argv[0], "input": argv[1],
+               "scans": args.scans, "seconds": time.perf_counter() - t0,
+               "ate_line": [ln for ln in text.getvalue().splitlines()
+                            if ln.startswith("ATE")]}
+        keys = ("max_err_m", "final_err_m", "drift_pct_per_m", "path_len_m")
+        res.update(zip(keys, chip_smoke._errors(est, gt)))
+        print(json.dumps(res), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--horizon", type=int, default=900)
@@ -101,14 +284,23 @@ def main(argv=None) -> int:
     ap.add_argument("--packages", default="msst_tpu,msst_torch")
     ap.add_argument("--perturb", type=int, default=None)
     ap.add_argument("--reference-sums", action="store_true")
+    ap.add_argument("--kitti", default=None, metavar="DIR")
+    ap.add_argument("--kitti-motion", action="store_true")
+    ap.add_argument("--bag", default=None, metavar="DIR")
+    ap.add_argument("--attitude", choices=("reader", "stamp"),
+                    default="reader")
+    ap.add_argument("--threads", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.kitti:
+        return _kitti(args)
+    if args.bag:
+        return _bag(args)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from msst_torch.models.liosam import LioSam as TLioSam
     from msst_torch.models.liosam.params import LioParams as TParams
-    from msst_tpu.models.liosam import mapping as jmap
     from msst_tpu.models.liosam import pipeline as jpipe
     from msst_tpu.models.liosam.params import LioParams as JParams
     from msst_tpu.utils import sim
@@ -123,34 +315,13 @@ def main(argv=None) -> int:
                             n_scans=args.scans, scan_dt=0.1, n_scan=16,
                             horizon=args.horizon, seed=7)
     if args.perturb is not None:
-        rng = np.random.default_rng(args.perturb)
-        for s in data:
-            s["xyz"] = (s["xyz"] * (1.0 + 2.0 ** -23 * rng.standard_normal(
-                s["xyz"].shape))).astype(s["xyz"].dtype)
+        import chip_smoke
+
+        data = chip_smoke._perturbed(data, args.perturb)
     if args.reference_sums:
         _use_reference_sums()
 
-    def reference_step(state, points, aux, p):
-        ps = jmap.prepare_scan(jmap.unpack_step_input(points, aux, p), p)
-        jmap.inp = ps
-        try:
-            return jmap.odometry_core(state, ps, p)
-        finally:
-            del jmap.inp
-
-    jstep = jax.jit(reference_step, static_argnames=("p",))
-    recorded = []
-
-    def recording_step(state, points, aux, p):
-        out = jstep(state, points, aux, p)
-        n_calls[0] += 1
-        if args.steps and n_calls[0] % args.steps == 0:
-            recorded.append(jax.tree.map(np.asarray, (state, points, aux,
-                                                      out[1])))
-        return out
-
-    n_calls = [0]
-    jpipe.odometry_step_packed = recording_step
+    recorded = _reference_binding(jax, args.steps)
     for name in args.packages.split(","):
         if name == "msst_tpu":
             lio = jpipe.LioSam(JParams(**over))
@@ -167,25 +338,7 @@ def main(argv=None) -> int:
         res.update(_accuracy(lio.trajectory.as_matrices(), data))
         print(json.dumps(res), flush=True)
     if recorded:
-        import torch
-
-        from msst_torch import convert
-        from msst_torch.models.liosam import mapping as tmap
-
-        p = TParams(**over)
-        gaps, kf_diff, it_diff = [], 0, 0
-        for state, points, aux, want in recorded:
-            _, got = tmap.odometry_step_packed(
-                convert.from_numpy(state, "cpu"), torch.from_numpy(points),
-                torch.from_numpy(aux), p)
-            gaps.append(float(np.abs(got.pose6.numpy() - want.pose6).max()))
-            kf_diff += bool(got.is_keyframe) != bool(want.is_keyframe)
-            it_diff += int(got.s2m_iterations) != int(want.s2m_iterations)
-        print(json.dumps({"steps_compared": len(gaps),
-                          "max_pose_gap": max(gaps),
-                          "median_pose_gap": float(np.median(gaps)),
-                          "keyframe_decisions_differ": kf_diff,
-                          "iterations_differ": it_diff}), flush=True)
+        _single_steps(recorded, TParams(**over))
     return 0
 
 

@@ -327,6 +327,33 @@ def test_scan_to_map_voxel_matches_jax(reassoc):
     assert abs(pose[4] - true_pose[4]) < 0.1
 
 
+@pytest.mark.parametrize("reassoc", [(0.0, 0.0), (0.01, 0.02)])
+def test_scan_to_map_voxel_counts_lookups(reassoc, monkeypatch):
+    """``lookups`` is the number of voxel-map lookups the loop took: one an
+    iteration without a re-association gate, the first and one after each
+    move past the gate with it."""
+    cvm, svm, scan_local, _ = _scene_256()
+    calls = []
+    inner = tvm.lookup_cat
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(tvm, "lookup_cat", counted)
+    got = treg.scan_to_map_voxel(
+        torch.zeros((8, 3)), torch.zeros(8, dtype=torch.bool),
+        torch.from_numpy(scan_local), torch.ones(1024, dtype=torch.bool),
+        convert.from_numpy(_np(cvm), "cpu"), convert.from_numpy(_np(svm), "cpu"),
+        torch.zeros(6), max_iters=10, eig_threshold=10.0,
+        reassoc_rot=reassoc[0], reassoc_trans=reassoc[1])
+    assert got.lookups == len(calls)
+    if reassoc == (0.0, 0.0):
+        assert got.lookups == int(got.iterations)
+    else:
+        assert 1 < got.lookups < int(got.iterations)
+
+
 def test_scan_to_map_voxel_flags_degenerate_plane():
     """A single ground plane leaves x, y and yaw unobserved: the degeneracy
     projection must fire in both packages."""
