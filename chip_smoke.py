@@ -126,7 +126,27 @@ Phases, one line each; any failure exits non-zero:
    ``packets_to_fixed_frame`` on the card within 1e-4 m of float64 numpy.
    13d: 13a's viewer files served by ``viz_html.make_server`` on
    127.0.0.1 with caching off, an overwrite seen on the next fetch.
-Each of 6-13 drives the card and fails the run when its check fails.
+14. multi-session mapping, 8 sessions as 8 slots of one card
+   (``msst_torch.parallel``): ``multisession_drive`` over 56 scans with
+   the frame offsets injected at scan 24 and ``cross_session_align`` every
+   6 scans, and a control drive without it: 14a at ``drive_params()`` (16
+   x 360) under tests/test_parallel.py's gates, 14b at bench.py's profile
+   (16 x 1800, 256 keyframes) over 4 rounding-level perturbed feeds of the
+   same drive (the control over the first): the speed, rendezvous and
+   datum gates on every feed, the
+   median of each ratio gate under the gate or, where msst_tpu misses it
+   on one of the same feeds on the CPU, msst_tpu's largest (MS_REFERENCE);
+   then one
+   ``cooperative_map_merge`` and one ``cooperative_map_merge_selective``
+   (budget 8) of 14b's final states and the peak device memory.  Fleet ms
+   per step (p50, p99), scans/s over the sessions (the aligned drive's
+   wall time, aligns included, and its steps alone), ms, host syncs
+   (``torch.cuda.set_sync_debug_mode``) and ICP iterations per align, B1
+   and B3 launches per drive.  The sessions' scans are simulated in phase
+   2's workers.  14c: the grid ``registration.icp_point2point`` (B2 at
+   k = 1, C = 16, phase 3b's first shape) on phase 11's master sweep
+   recovers a known offset and agrees with the CPU twin.
+Each of 6-14 drives the card and fails the run when its check fails.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  --out DIR also writes the per-scan
@@ -3037,7 +3057,7 @@ def phase_decode_pcap(card, workdir, dev_name="cuda"):
     _write_pcap(pcap, pk, stamps)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "msst_torch.cli",
-                           "decode-pcap", pcap, pcd, "--device", dev_name],
+                           "decode-pcap", pcap, pcd],
                           cwd=root, capture_output=True, text=True,
                           timeout=600)
     wall = time.perf_counter() - t0
@@ -3144,6 +3164,412 @@ def phase_viewer(viz, card):
             "png": png}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-session mapping, eight sessions on one card
+# ---------------------------------------------------------------------------
+
+MS_SLOTS = 8
+MS_SCANS = 56
+MS_WARM = 24
+MS_ALIGN_EVERY = 6
+MS_BUDGET = 8
+MS_SPEED_GATE = 1.0        # tests/test_parallel.py:324-338
+MS_DATUM_GATE_M = 0.35
+MS_SHARE_GATE = 0.7
+# 14a is held to tests/test_parallel.py:324-338's gates as they are.  14b
+# (a profile msst_tpu never validated for the fleet drive) drives seed 0
+# over MS_FEEDS, its scans perturbed at the rounding level (`_perturbed`
+# under the seed [feed, session]), each feed aligned and as a control.
+# The control drives the first feed only: without the align, rounding
+# moves its final error by 1 mm at most (msst_tpu over these feeds 0.552-
+# 0.553 m, the card 0.552 m on each, PERF.md section 6).  Every feed must
+# meet the speed, rendezvous and datum gates; the card's
+# median over the feeds of each ratio gate must meet the gate, or, where
+# msst_tpu misses it on one of the same feeds, msst_tpu's largest over
+# them (as 13b holds the card to msst_tpu's largest): the align's result
+# on this drive is a spread that rounding alone spans (PERF.md section 6).
+# Per feed: msst_tpu's aligned drive (err_at_injection, err_final,
+# err_datum_final, loops_total, mean_speed) and its control's err_final,
+# on the CPU (scripts/torch_vs_ref_multisession.py --profile bench
+# --packages msst_tpu --perturb FEED).
+MS_FEEDS = (0, 1, 2, 3)
+MS_REFERENCE = {
+    "14a": None,
+    "14b": {
+        0: ({"err_at_injection": 0.525, "err_final": 0.619,
+             "err_datum_final": 0.09, "loops_total": 40,
+             "mean_speed": 2.31}, {"err_final": 0.552}),
+        1: ({"err_at_injection": 0.526, "err_final": 1.291,
+             "err_datum_final": 0.088, "loops_total": 40,
+             "mean_speed": 2.287}, {"err_final": 0.553}),
+        2: ({"err_at_injection": 0.525, "err_final": 0.775,
+             "err_datum_final": 0.09, "loops_total": 40,
+             "mean_speed": 2.306}, {"err_final": 0.552}),
+        3: ({"err_at_injection": 0.525, "err_final": 1.269,
+             "err_datum_final": 0.091, "loops_total": 40,
+             "mean_speed": 2.295}, {"err_final": 0.552}),
+    },
+}
+# the known offset lies in the grid ICP's basin on this sweep: from (0, 0,
+# 0.03 rad, 0.15, -0.10, 0.05 m) msst_tpu's grid ICP stops at 0.5801 deg /
+# 12.56 mm after 11 iterations, as the port's does, and from this one both
+# recover 0.0074 deg / 2.46 mm in 4 (CPU runs, scripts/
+# torch_vs_ref_grid_icp.py)
+ICP14_OFFSET = (0.0, 0.0, 0.004, 0.04, -0.03, 0.02)  # rpy (rad), xyz (m)
+ICP14_MAX_ITERS = 50
+ICP14_TRUTH_DEG = 0.05
+ICP14_TRUTH_M = 0.01
+ICP14_AGREE = 1e-4    # card against the CPU twin, m and rad
+
+
+def _ms_profiles():
+    """{tag: (LioParams, horizon)}: 14a msst_tpu's drive profile
+    (``drive_params()``, 16 x 360), 14b bench.py's profile (16 x 1800,
+    ``LioParams`` defaults otherwise, 256 keyframes, loop closure off)."""
+    from msst_torch.parallel import drive_params
+
+    return {"14a": (drive_params(), 360),
+            "14b": (_params("voxel"), HORIZON)}
+
+
+def _ms_key(speed, n_scans, n_scan, horizon, seed):
+    return (round(float(speed), 6), int(n_scans), int(n_scan), int(horizon),
+            int(seed))
+
+
+def _ms_session(j, horizon):
+    """Session j's scans of ``multisession_drive`` (seed 0) at `horizon`
+    columns, made as the drive makes them (runs in a worker process)."""
+    from msst_torch.utils import sim
+
+    speed = 1.6 + 1.4 * j / max(MS_SLOTS - 1, 1)
+    data = sim.make_dataset(sim.World(), sim.SimTrajectory(
+        kind="circle", radius=8.0, speed=speed), n_scans=MS_SCANS,
+        scan_dt=SCAN_DT, n_scan=N_SCAN, horizon=horizon, seed=j)
+    return _ms_key(speed, MS_SCANS, N_SCAN, horizon, j), data
+
+
+@contextmanager
+def _ms_cached_scans(cache):
+    """``sim.make_dataset`` answering the drive's calls from `cache` (the
+    worker pool's scans, the same arrays); any other call is simulated."""
+    from msst_torch.utils import sim
+
+    inner = sim.make_dataset
+
+    def make_dataset(world, traj, n_scans=40, scan_dt=0.1, n_scan=16,
+                     horizon=360, seed=0, **kw):
+        key = _ms_key(traj.speed, n_scans, n_scan, horizon, seed)
+        if (key in cache and not kw and scan_dt == SCAN_DT
+                and traj.kind == "circle" and traj.radius == 8.0):
+            return cache[key]
+        return inner(world, traj, n_scans=n_scans, scan_dt=scan_dt,
+                     n_scan=n_scan, horizon=horizon, seed=seed, **kw)
+
+    sim.make_dataset = make_dataset
+    try:
+        yield
+    finally:
+        sim.make_dataset = inner
+
+
+@contextmanager
+def _ms_perturbed(sim, feed):
+    """``sim.make_dataset`` of either package's simulator with each
+    session's points scaled by `_perturbed` under the seed [feed, the
+    session's seed]: the same rounding-level feeds in both packages."""
+    inner = sim.make_dataset
+
+    def make_dataset(world, traj, n_scans=40, scan_dt=0.1, n_scan=16,
+                     horizon=360, seed=0, **kw):
+        return _perturbed(inner(world, traj, n_scans=n_scans,
+                                scan_dt=scan_dt, n_scan=n_scan,
+                                horizon=horizon, seed=seed, **kw),
+                          [feed, seed])
+
+    sim.make_dataset = make_dataset
+    try:
+        yield
+    finally:
+        sim.make_dataset = inner
+
+
+def _ms_drive(p, horizon, use_align, card_tag):
+    """One ``multisession_drive`` on the card, 8 slots, with every kernel
+    count set to 0 just before it and read just after; each fleet step and
+    each align timed to the end of its device work; each align's host
+    syncs counted by ``torch.cuda.set_sync_debug_mode("warn")`` and its ICP
+    iterations (one stop flag read each) summed.  Returns (the drive's
+    result, the record, the last step's states and scan times)."""
+    import warnings
+
+    import torch
+
+    from msst_torch.ops import gather, knn, registration, voxelmap
+    from msst_torch.parallel import make_mesh
+    from msst_torch.parallel import multisession as ms
+
+    rec = {"step_s": [], "align_s": [], "align_syncs": [], "icp_iters": []}
+    last = {}
+    step, align = ms.batched_odometry_step, ms.cross_session_align
+    icp = registration.icp_point2point_brute
+    icp_iters = []
+
+    def timed_step(states, inputs, p, mesh, axis="session"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(states, inputs, p, mesh, axis)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        last["states"], last["scan_time"] = out[0], inputs.scan.scan_start
+        return out
+
+    def counted_icp(*args, **kwargs):
+        res = icp(*args, **kwargs)
+        icp_iters.append(res.iters)
+        return res
+
+    def timed_align(states, p, mesh, axis="session", n_cand=2):
+        n0 = len(icp_iters)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = align(states, p, mesh, axis, n_cand)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            rec["align_s"].append(time.perf_counter() - t0)
+        rec["align_syncs"].append(sum("synchroniz" in str(w.message)
+                                      for w in caught))
+        rec["icp_iters"].append(int(torch.stack(icp_iters[n0:]).sum()))
+        return out
+
+    counters = {"B1": voxelmap.lookup_cat, "B2": knn.query,
+                "B3": gather.gather_rows}
+    mesh = make_mesh(MS_SLOTS)
+    ms.batched_odometry_step, ms.cross_session_align = timed_step, timed_align
+    registration.icp_point2point_brute = counted_icp
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = ms.multisession_drive(p, mesh, n_scans=MS_SCANS,
+                                    n_warm=MS_WARM,
+                                    align_every=MS_ALIGN_EVERY,
+                                    horizon=horizon, use_align=use_align)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        ms.batched_odometry_step, ms.cross_session_align = step, align
+        registration.icp_point2point_brute = icp
+    steady = 1000.0 * np.asarray(rec["step_s"][2:])
+    rec.update(
+        step_p50_ms=float(np.percentile(steady, 50)),
+        step_p99_ms=float(np.percentile(steady, 99)),
+        scans_per_s=MS_SLOTS * len(rec["step_s"]) / rec["wall_s"],
+        step_scans_per_s=MS_SLOTS * len(rec["step_s"]) / sum(rec["step_s"]),
+        align_ms=[1000.0 * s for s in rec["align_s"]])
+    if rec["launches"]["B1"] == 0:
+        raise AssertionError(f"{card_tag}: the drive never launched B1")
+    if use_align and rec["launches"]["B3"] == 0:
+        raise AssertionError(f"{card_tag}: the aligns never launched B3")
+    return res, rec, last
+
+
+def _ms_gates(tag, runs, ref):
+    """tests/test_parallel.py:324-338's gates on aligned drives against
+    their controls, `runs` [(aligned, control)] (one per feed):
+    [(gate, value, bound)], each value <= its bound (the speed and the loops
+    > theirs).  The speed, loops and datum gates take the worst run; the
+    two ratio gates the median over the runs.  `ref` (MS_REFERENCE) holds
+    msst_tpu's drives over the same feeds, or None for the gates as they
+    are: a ratio gate msst_tpu misses on one of its feeds takes msst_tpu's
+    largest over the feeds as its bound."""
+    def figures(a, c):
+        return {"mean_speed > ": a["mean_speed"],
+                "loops_total > ": a["loops_total"],
+                "err_datum_final <= ": a["err_datum_final"],
+                "err_final / err_at_injection <= ":
+                    a["err_final"] / a["err_at_injection"],
+                "err_final / control err_final <= ":
+                    a["err_final"] / c["err_final"]}
+
+    bounds = {"mean_speed > ": MS_SPEED_GATE, "loops_total > ": 0,
+              "err_datum_final <= ": MS_DATUM_GATE_M,
+              "err_final / err_at_injection <= ": MS_SHARE_GATE,
+              "err_final / control err_final <= ": MS_SHARE_GATE}
+    ratios = ("err_final / err_at_injection <= ",
+              "err_final / control err_final <= ")
+    card = [figures(a, c) for a, c in runs]
+    gates = []
+    for name, bound in bounds.items():
+        values = [f[name] for f in card]
+        if name in ratios:
+            value = float(np.median(values))
+            if ref:
+                worst = max(figures(a, c)[name] for a, c in ref.values())
+                bound = max(bound, worst)
+        else:
+            value = (min if name.endswith("> ") else max)(values)
+        gates.append((name, value, bound))
+    failed = [g for g in gates
+              if (g[1] <= g[2] if g[0].endswith("> ") else g[1] > g[2])]
+    for name, value, bound in gates:
+        print(f"        {tag} gate {name}{bound:.4f}: {value:.4f}",
+              flush=True)
+    if failed:
+        raise AssertionError(f"{tag}: gates missed: {failed}")
+    return [{"gate": n.strip(), "value": v, "bound": b} for n, v, b in gates]
+
+
+def _occupied(lm):
+    """Usable voxels (mask & valid) of each session's corner and surf maps."""
+    return [[int(x) for x in (v.mask & v.valid).sum(dim=1).tolist()]
+            for v in (lm.corner_vox, lm.surf_vox)]
+
+
+def phase_multisession(cache, card):
+    """Phase 14: multi-session mapping on the card.  14a ``drive_params()``
+    and 14b bench.py's profile: 8 session slots, 56 scans, the frame
+    offsets injected at scan 24, an align every 6 scans, and a control
+    drive without the align, under tests/test_parallel.py's gates; 14b
+    over the perturbed feeds MS_FEEDS (`_ms_gates`, MS_REFERENCE), then
+    both merges of its last feed's final states.  14c the grid ICP."""
+    import torch
+
+    from msst_torch.ops import gather, voxelmap
+    from msst_torch.parallel import make_mesh
+    from msst_torch.parallel import multisession as ms
+
+    out = {}
+    profiles = _ms_profiles()
+    for tag in ("14a", "14b"):
+        p, horizon = profiles[tag]
+        t0 = time.perf_counter()
+        if tag == "14b":
+            torch.cuda.reset_peak_memory_stats()
+        feeds = [None] if tag == "14a" else MS_FEEDS
+        res = {"feeds": []}
+        for feed in feeds:
+            scans = {k: v if feed is None else _perturbed(v, [feed, k[-1]])
+                     for k, v in cache.items() if k[3] == horizon}
+            with _ms_cached_scans(scans):
+                aligned, rec, last = _ms_drive(p, horizon, True, tag)
+                if not res["feeds"]:
+                    control, crec, _ = _ms_drive(p, horizon, False, tag)
+                    res.update(control=control, control_record=crec)
+            del scans
+            res["feeds"].append({"feed": feed, "aligned": aligned,
+                                 "record": rec})
+            print(f"phase {tag}: multisession_drive, {MS_SLOTS} sessions "
+                  f"of {N_SCAN}x{horizon} on one card, {MS_SCANS} scans, "
+                  f"offsets at scan {MS_WARM}, an align every "
+                  f"{MS_ALIGN_EVERY}, "
+                  + ("the feed as simulated" if feed is None else
+                     f"perturbed feed {feed}")
+                  + f": aligned {aligned}; control"
+                  + ("" if feed is None else f" (feed {feeds[0]})")
+                  + f" {control}; fleet step "
+                  f"p50 {rec['step_p50_ms']:.2f} ms, p99 "
+                  f"{rec['step_p99_ms']:.2f} ms; {rec['scans_per_s']:.2f} "
+                  f"scans/s over the sessions in the aligned drive's "
+                  f"{rec['wall_s']:.2f} s ({rec['step_scans_per_s']:.2f} "
+                  f"over its steps alone, control "
+                  f"{crec['scans_per_s']:.2f}); aligns "
+                  f"{[round(a, 1) for a in rec['align_ms']]} ms, host "
+                  f"syncs {rec['align_syncs']}, ICP iterations "
+                  f"{rec['icp_iters']}; launches aligned "
+                  f"{rec['launches']}, control {crec['launches']} [{card}]",
+                  flush=True)
+        res["gates"] = _ms_gates(
+            tag, [(f["aligned"], res["control"]) for f in res["feeds"]],
+            MS_REFERENCE[tag])
+        if tag == "14b":
+            states, scan_time = last["states"], last["scan_time"]
+            mesh = make_mesh(MS_SLOTS)
+            own = _occupied(states.local_map)
+            for fn in (voxelmap.lookup_cat, gather.gather_rows):
+                fn.launches = 0
+            merged, merge_s = _timed(lambda: ms.cooperative_map_merge(
+                states, scan_time, p, mesh))
+            sel, sel_s = _timed(
+                lambda: ms.cooperative_map_merge_selective(
+                    states, scan_time, p, mesh, budget=MS_BUDGET))
+            b3 = gather.gather_rows.launches
+            res["merge"] = {
+                "own": own, "full": _occupied(merged.local_map),
+                "selective": _occupied(sel.local_map),
+                "merge_ms": 1000.0 * merge_s,
+                "selective_ms": 1000.0 * sel_s, "selective_B3": b3,
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+            m = res["merge"]
+            print(f"        14b merges of feed {feeds[-1]}'s final states: "
+                  f"usable voxels (corner, surf) a session: own "
+                  f"{m['own']}, full merge {m['full']} in "
+                  f"{m['merge_ms']:.1f} ms, selective (budget "
+                  f"{MS_BUDGET}) {m['selective']} in "
+                  f"{m['selective_ms']:.1f} ms with {b3} B3 launches; "
+                  f"peak device memory "
+                  f"{m['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+            if b3 == 0 or min(min(r) for r in m["full"]) == 0 or min(
+                    min(r) for r in m["selective"]) == 0:
+                raise AssertionError(f"14b merges: {m}")
+            del merged, sel, states
+        del last
+        res["s"] = time.perf_counter() - t0
+        print(f"        {tag}: {res['s']:.1f} s", flush=True)
+        out[tag] = res
+    return out
+
+
+def phase_grid_icp(scene, card, dev_name="cuda"):
+    """Phase 14c: the grid ``registration.icp_point2point`` (its
+    correspondences from ``knn.query`` at k = 1, C = 16, B2) on phase 11's
+    master sweep (16384 slots, cell 1.4 m: phase 3b's first shape) against
+    the same cloud moved by ICP14_OFFSET: the offset recovered, and the
+    pose within ICP14_AGREE of the CPU twin's on the same inputs."""
+    import torch
+
+    from msst_torch.ops import knn, registration, se3
+
+    def run(dev):
+        tq, tm = _prepped(scene[0], dev)
+        off = se3.Pose.from_vec6(torch.tensor(ICP14_OFFSET, device=dev))
+        src = off.inverse().apply(tq)
+        grid = knn.build(tq, tm, 1.4, 16384)
+        return registration.icp_point2point(
+            src, tm, grid, tq, se3.Pose.identity(device=dev),
+            max_iters=ICP14_MAX_ITERS, max_corr_dist=1.0)
+
+    knn.query.launches = 0
+    res, sec = _timed(lambda: run(torch.device(dev_name)))
+    launches = knn.query.launches
+    cpu = run(torch.device("cpu"))
+    got = res.pose.to_vec6().cpu().numpy()
+    truth_deg = float(np.rad2deg(np.abs(got[:3] - ICP14_OFFSET[:3]).max()))
+    truth_m = float(np.abs(got[3:] - ICP14_OFFSET[3:]).max())
+    agree = float(np.abs(got - cpu.pose.to_vec6().numpy()).max())
+    iters = int(res.iters)
+    print(f"phase 14c: grid icp_point2point on the card, {int(iters)} "
+          f"iterations (CPU twin {int(cpu.iters)}), {launches} B2 launches, "
+          f"{1000.0 * sec:.1f} ms; offset recovered to {truth_deg:.5f} deg / "
+          f"{truth_m:.5f} m (gates {ICP14_TRUTH_DEG} deg / {ICP14_TRUTH_M} "
+          f"m); fitness {float(res.fitness):.6f}; card vs CPU twin "
+          f"{agree:.2e} (gate {ICP14_AGREE}) [{card}]", flush=True)
+    if (launches != iters + 1 or truth_deg > ICP14_TRUTH_DEG
+            or truth_m > ICP14_TRUTH_M or agree > ICP14_AGREE
+            or not bool(res.converged)):
+        raise AssertionError("14c: grid ICP missed its gates")
+    return {"iters": iters, "cpu_iters": int(cpu.iters),
+            "launches": launches, "ms": 1000.0 * sec, "truth_deg": truth_deg,
+            "truth_m": truth_m, "cpu_gap": agree,
+            "fitness": float(res.fitness)}
+
+
 def _build_kernels(names):
     """One nvcc per source, all started together; then load each library.
     Returns the seconds each build took (0 where it was already built)."""
@@ -3212,11 +3638,14 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
     # CUDA context) while the kernels build; the pool ends before anything
     # is timed
     with ProcessPoolExecutor(
-            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+            5, mp_context=multiprocessing.get_context("spawn")) as pool:
         bench_job = pool.submit(_simulate, N_SCANS, 7)
         loop_job = pool.submit(_simulate, N_LOOP_SCANS, 8)
         kitti_job = pool.submit(_write_kitti_drive,
                                 os.path.join(workdir, "kitti"))
+        # phase 14's sessions, 14b's (1800 columns) first
+        ms_jobs = [pool.submit(_ms_session, j, horizon)
+                   for horizon in (HORIZON, 360) for j in range(MS_SLOTS)]
         t0 = time.perf_counter()
         build_s = _build_kernels(["voxel_lookup", "knn_query", "gather_rows"])
         print("phase 2: built with nvcc, in parallel: "
@@ -3226,8 +3655,10 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
         usage = _resource_usage(build_s)
         data, loop_data = bench_job.result(), loop_job.result()
         kitti = kitti_job.result()
-    print(f"        simulated {N_SCANS} + {N_LOOP_SCANS} scans and wrote "
-          f"the {KITTI_SCANS}-sweep KITTI drive in "
+        ms_scans = dict(job.result() for job in ms_jobs)
+    print(f"        simulated {N_SCANS} + {N_LOOP_SCANS} scans, wrote "
+          f"the {KITTI_SCANS}-sweep KITTI drive and simulated phase 14's "
+          f"2 x {MS_SLOTS} sessions of {MS_SCANS} scans in "
           f"{time.perf_counter() - t_sim:.1f} s", flush=True)
     p = _params("knn")   # both methods share every size the kernels see
     feats, queries = _step_features(data, p, torch.device("cuda"))
@@ -3294,6 +3725,22 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
     b1["lio_kitti_gn_iterations"] = lio13["gn_iterations"]
     b1["lio_bag_launches"] = res["lio_bag"]["launches"]
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    res["multisession"] = phase_multisession(ms_scans, card)
+    del ms_scans
+    res["multisession"]["14c"] = phase_grid_icp(calib_scene, card)
+    for tag in ("14a", "14b"):
+        r = res["multisession"][tag]
+        feeds = r["feeds"]
+        b1[f"multisession_{tag}_launches"] = {
+            "aligned": [f["record"]["launches"]["B1"] for f in feeds],
+            "control": r["control_record"]["launches"]["B1"]}
+        b3[f"multisession_{tag}_launches"] = [
+            f["record"]["launches"]["B3"] for f in feeds]
+    b3["multisession_14b_selective_launches"] = (
+        res["multisession"]["14b"]["merge"]["selective_B3"])
+    b2["grid_icp_launches"] = res["multisession"]["14c"]["launches"]
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -34,7 +34,8 @@ every N scans (and ``trajectory.png`` where matplotlib is installed), which
 1206-byte Velodyne-style packets into a PCD with the native decoder
 (``msst_torch/native/msst_native.cc``, built with g++ at its first use).
 
-Every command runs on the card; ``--device cpu`` runs it on the CPU.  Where
+Every command but ``viz-serve`` and ``decode-pcap`` (host only, no
+``--device``) runs on the card; ``--device cpu`` runs it on the CPU.  Where
 no CUDA device is present and no ``--device cpu`` is given, it raises.
 """
 
@@ -405,20 +406,18 @@ def cmd_lio_bag(args):
 def cmd_viz_serve(args):
     """Interactive map viewer (the reference's RViz surface,
     ``mapOptmization.cpp:421-490,723-774``): serves viewer.html + the
-    streamed global_map.ply / trajectory.json, polling for overwrites."""
-    from .models.calibration import device as device_mod
+    streamed global_map.ply / trajectory.json, polling for overwrites.
+    Host only: no card."""
     from .utils import viz_html
 
-    device_mod.resolve(args.device)
     viz_html.serve(args.dir, port=args.port)
 
 
 def cmd_decode_pcap(args):
-    from .models.calibration import device as device_mod
+    """Packets to a PCD with the native decoder, on the host: no card."""
     from .utils import native, packets
     from .utils.io_pcd import write_pcd
 
-    device_mod.resolve(args.device)
     pk, stamps = native.read_pcap(args.pcap, args.max_packets)
     if not len(pk):
         sys.exit(f"no 1206-byte packets in {args.pcap}")
@@ -433,10 +432,11 @@ def main(argv=None):
         description="msst tools on PyTorch (the card by default)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    def parser(name):
+    def parser(name, card=True):
         s = sub.add_parser(name)
-        s.add_argument("--device", default="cuda",
-                       help="torch device: cuda (default) or cpu")
+        if card:
+            s.add_argument("--device", default="cuda",
+                           help="torch device: cuda (default) or cpu")
         return s
 
     s = parser("lio-sim")
@@ -484,12 +484,12 @@ def main(argv=None):
     s.add_argument("--viz-dir", default="viz_live")
     s.set_defaults(fn=cmd_lio_bag)
 
-    s = parser("viz-serve")
+    s = parser("viz-serve", card=False)
     s.add_argument("dir", nargs="?", default="viz_live")
     s.add_argument("--port", type=int, default=8642)
     s.set_defaults(fn=cmd_viz_serve)
 
-    s = parser("decode-pcap")
+    s = parser("decode-pcap", card=False)
     s.add_argument("pcap")
     s.add_argument("output")
     s.add_argument("--max-packets", type=int, default=100000)

@@ -9,7 +9,8 @@ are kept (bool stays bool, int32 stays int32).  Every leaf is carried,
 the knn hash grids of ``LocalMap`` included, so a state of either
 scan-to-map method taken from msst_tpu is a state the port can step from;
 so is a heading estimator's ``HeadingState`` or a target tracker's
-``TrackerState`` (with its ``KalmanState``).
+``TrackerState`` (with its ``KalmanState``), and a step's ``StepInput``
+and ``StepOutput``, batched or not.
 
 ``config_from(cfg)`` takes a msst_tpu config (``MultiLicaConfig``,
 ``AutoCalibConfig``, ``NdtCalibConfig``, ``HeadingConfig``,
@@ -28,7 +29,7 @@ import torch
 
 from .models import fusion, heading, target_tracker
 from .models.calibration import auto_calib, multi_lica, ndt_calib
-from .models.liosam import imu_fusion, loop, state
+from .models.liosam import frontend, imu_fusion, loop, mapping, state
 from .ops import (graph, imu, kalman, knn, pointcloud, registration, se3,
                   voxelmap)
 
@@ -37,6 +38,7 @@ _TYPES = {cls.__name__: cls for cls in (
     graph.PoseGraph, graph.PriorFactor, graph.BetweenFactor, graph.GpsFactor,
     se3.Pose, imu_fusion.FilterState, imu.NavState, imu.ImuBias,
     state.LioState, state.KeyframeStore, state.LocalMap,
+    mapping.StepInput, mapping.StepOutput, frontend.ScanInput,
     loop.LoopResult, registration.IcpResult, registration.NdtMap,
     pointcloud.Cloud, kalman.KalmanState, target_tracker.TrackerState,
     heading.HeadingState,

@@ -250,8 +250,9 @@ def _features_from_moments(corner_mom, surf_mom, anchor: Tensor, p: LioParams,
     ck, sk = _moment_group_bits(p)
     cx, cm = voxelmap.moments_centroids(corner_mom, p.mapping_corner_leaf_size,
                                         anchor, group_bits=ck or 0)
-    sx, sm = voxelmap.moments_centroids(surf_mom, p.mapping_surf_leaf_size,
-                                        anchor, group_bits=sk or 0)
+    sx, sm, s_cnt = voxelmap.moments_centroids(
+        surf_mom, p.mapping_surf_leaf_size, anchor, group_bits=sk or 0,
+        return_counts=True)
     tiny_xyz = torch.zeros((8, 3), device=dev)
     tiny_mask = torch.zeros(8, dtype=torch.bool, device=dev)
     return LocalMap(
@@ -266,7 +267,7 @@ def _features_from_moments(corner_mom, surf_mom, anchor: Tensor, p: LioParams,
             sx, sm, p.vox_surf_leaf, p.vox_surf_cap, "plane",
             table_size=2 * p.vox_surf_cap, origin=anchor,
             presorted=sk is not None,
-            plane_min_spread=p.vox_plane_min_spread),
+            plane_min_spread=p.vox_plane_min_spread, weights=s_cnt),
         corner_mom=corner_mom, surf_mom=surf_mom, anchor=anchor,
         valid=torch.tensor(True, device=dev),
         mom_dropped=(torch.zeros(2, dtype=torch.int32, device=dev)

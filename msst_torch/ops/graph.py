@@ -299,3 +299,12 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
         graph = graph._replace(
             poses=se3.pose_retract(graph.poses, x * free[:, None]))
     return graph
+
+
+def total_error(graph: PoseGraph) -> Tensor:
+    """Sum of the squared whitened residuals of every factor (gtsam's
+    ``graph.error()`` analogue)."""
+    rp, _ = _prior_terms(graph.poses, graph.priors)
+    rb, _, _ = _between_terms(graph.poses, graph.betweens)
+    rg, _ = _gps_terms(graph.poses, graph.gps)
+    return torch.sum(rp * rp) + torch.sum(rb * rb) + torch.sum(rg * rg)

@@ -312,6 +312,27 @@ def nearest1_brute(tgt_xyz: Tensor, tgt_mask: Tensor, q_xyz: Tensor,
     return KnnResult(best_i[:, None], d2[:, None], torch.isfinite(d2)[:, None])
 
 
+def nearest_in_set(xyz: Tensor, mask: Tensor, q_xyz: Tensor, q_mask: Tensor,
+                   k: int = 1) -> KnnResult:
+    """Exact k-NN by one dense distance matrix (O(N*Q)), for small sets such
+    as keyframe positions (``extractNearby`` :868-877, loop candidates
+    :617-631).  Equal distances come out in ascending index order; up to
+    k = 16 by masked argmin passes (a row of only inf then repeats index
+    0), beyond by a stable sort (index order among the inf too), as
+    msst_tpu's ``_small_topk_min`` and ``lax.top_k`` order them."""
+    d2 = (torch.sum(q_xyz * q_xyz, dim=1)[:, None]
+          - (2.0 * q_xyz) @ xyz.T
+          + torch.sum(xyz * xyz, dim=1)[None, :])
+    d2 = torch.where(mask[None, :] & q_mask[:, None], d2, torch.inf)
+    if k > 16:
+        d2k, idx = torch.sort(d2, dim=1, stable=True)
+        d2k, idx = d2k[:, :k], idx[:, :k]
+    else:
+        d2k, idx = _small_topk_min(d2, k)
+    d2k = torch.clamp(d2k, min=0.0)
+    return KnnResult(idx.to(torch.int32), d2k, torch.isfinite(d2k))
+
+
 def radius_count(grid: HashGrid, q_xyz: Tensor, q_mask: Tensor, radius: float,
                  candidates_per_cell: int = 16) -> Tensor:
     """Number of grid points within `radius` of each query (27-cell scope)."""

@@ -335,6 +335,33 @@ class IcpResult(NamedTuple):
     iters: Tensor       # () int32 iterations run
 
 
+def icp_point2point(
+    src_xyz: Tensor, src_mask: Tensor,
+    tgt_grid: knn.HashGrid, tgt_xyz: Tensor,
+    init_pose: se3.Pose,
+    max_iters: int = 100,
+    max_corr_dist: float = 2.0,
+    fitness_max_dist: float = math.inf,
+    transformation_eps: float = 1e-6,
+    candidates_per_cell: int = 16,
+    rel_mse_eps: float = 1e-5,
+    abs_mse_eps: float = 1e-12,
+) -> IcpResult:
+    """:func:`icp_point2point_brute` with its correspondences from the
+    target's hash grid: each iteration one :func:`knn.query` at k = 1 (the
+    k-NN kernel on the card), ``tgt_xyz`` the cloud the grid was built
+    over.  The same PCL stop rule, one flag read back an iteration."""
+
+    def nn1(moved, max_sq):
+        return knn.query(tgt_grid, moved, src_mask, k=1,
+                         candidates_per_cell=candidates_per_cell,
+                         max_sqdist=max_sq)
+
+    return _icp_run(src_xyz, src_mask, nn1, tgt_xyz, init_pose, max_iters,
+                    max_corr_dist, fitness_max_dist, transformation_eps,
+                    rel_mse_eps, abs_mse_eps)
+
+
 def icp_point2point_brute(
     src_xyz: Tensor, src_mask: Tensor,
     tgt_xyz: Tensor, tgt_mask: Tensor,

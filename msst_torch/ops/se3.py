@@ -267,6 +267,12 @@ class Pose(NamedTuple):
         return self.inverse().compose(other)
 
 
+def pose_log(p: Pose) -> Tensor:
+    """(log R, t) 6-vector of a pose: the rotation's axis-angle and the
+    plain translation (the local coordinate of the factor residuals)."""
+    return torch.cat([so3_log(p.q), p.t], dim=-1)
+
+
 def pose_retract(p: Pose, delta: Tensor) -> Pose:
     """Right-perturbation retraction: (R, t) <- (R exp(dw), t + R dv)."""
     dq = so3_exp_quat(delta[..., :3])

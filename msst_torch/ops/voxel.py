@@ -41,7 +41,8 @@ def voxel_downsample(
     capacity: Optional[int] = None,
     extra_key: Optional[Tensor] = None,
     uniform_overflow: bool = True,
-) -> Cloud:
+    return_stats: bool = False,
+):
     """Centroid voxel filter, msst_tpu's semantics exactly:
 
     * extra_key: optional (N,) int appended to the voxel key (the ring id,
@@ -54,6 +55,8 @@ def voxel_downsample(
       orders by the packed key (overflow drops the highest keys).
     * positions are summed demeaned by their cell centre and clipped to half
       a leaf, so float32 sums keep metric precision.
+    * return_stats: also return the occupied voxels that did not fit
+      `capacity` (() int32), so a capped call site can report saturation.
     """
     n = cloud.capacity
     n_out = capacity or n
@@ -108,7 +111,31 @@ def voxel_downsample(
     denom = torch.clamp(counts, min=1.0)[:, None]
     n_voxels = torch.sum(new_voxel.to(torch.int32))
     mask_out = torch.arange(n_out, device=dev) < torch.clamp(n_voxels, max=n_out)
-    return Cloud(center_v + rsums / denom, mask_out, asums / denom)
+    out = Cloud(center_v + rsums / denom, mask_out, asums / denom)
+    if return_stats:
+        return out, torch.clamp(n_voxels - n_out, min=0).to(torch.int32)
+    return out
+
+
+def voxel_downsample_first(cloud: Cloud, leaf: float,
+                           capacity: Optional[int] = None) -> Cloud:
+    """Keep the first point (in input order) of each voxel, in input order:
+    cheaper than the centroid filter, for where the reference's behaviour
+    does not depend on centroids (candidate thinning)."""
+    n = cloud.capacity
+    n_out = capacity or n
+    c = voxel_coords(cloud.xyz, leaf)
+    big = _PACKED_INVALID
+    cx, cy, cz = (torch.where(cloud.mask, c[:, i], big) for i in range(3))
+    order = _stable_order(cx, cy, cz)
+    cs = torch.stack([cz[order], cy[order], cx[order]], dim=1)
+    first = torch.any(cs != torch.roll(cs, 1, dims=0), dim=1)
+    first[0] = True
+    first = first & cloud.mask[order]
+    keep = torch.sort(torch.where(first, order, n + 1)).values[:n_out]
+    ok = keep <= n
+    keep = torch.clamp(keep, max=n - 1)
+    return Cloud(cloud.xyz[keep], ok, cloud.attrs[keep])
 
 
 def voxel_downsample_packed(

@@ -19,6 +19,7 @@ import torch
 from .. import kernels
 from . import linalg, segments
 from .numeric import hash3 as _hash3
+from .voxel import _stable_order
 
 Tensor = torch.Tensor
 
@@ -127,29 +128,45 @@ def _new_runs(key_s: Tensor, valid_s: Tensor) -> Tensor:
 
 
 def build(xyz: Tensor, mask: Tensor, leaf: float, capacity: int,
-          kind: str, *, origin: Tensor, table_size: int = 8192,
-          min_points: int = 3, line_ratio: float = 3.0,
-          plane_thickness: float = 0.1, plane_min_spread: float = 0.0,
+          kind: str, *, origin: Optional[Tensor] = None,
+          table_size: int = 8192, min_points: int = 3,
+          line_ratio: float = 3.0, plane_thickness: float = 0.1,
+          plane_min_spread: float = 0.0, plane_spread_min_count=0.0,
+          weights: Optional[Tensor] = None,
           presorted: bool = False) -> VoxelFeatureMap:
-    """Voxelize + fit per-voxel features (msst_tpu's ``build`` on an
-    origin-anchored grid).
+    """Voxelize + fit per-voxel features (msst_tpu's ``build``).
 
     kind: "plane" (surf map) or "line" (corner map).  origin: anchor of the
-    +-512-cell packed key domain (points outside are dropped).
-    plane_thickness: max sqrt(lambda_min) of a valid plane.
-    plane_min_spread > 0: thin cells with sqrt(lambda_mid) below it become
-    LINE features (direction scaled by LINE_DIR_SCALE, d = 0).  presorted:
-    rows are already grouped by this grid's cells (hierarchical moment
-    keys), so no sort."""
+    +-512-cell packed key domain (points outside are dropped); None puts
+    the grid at the world origin with unbounded cells, grouped by a
+    lexicographic sort of (x, y, z).  plane_thickness: max sqrt(lambda_min)
+    of a valid plane.  plane_min_spread > 0: thin cells with
+    sqrt(lambda_mid) below it become LINE features (direction scaled by
+    LINE_DIR_SCALE, d = 0), unless they hold fewer than
+    `plane_spread_min_count` true points (a float or a tensor); `weights`
+    (N,) gives each row's true point count where rows are fine-cell
+    centroids (default 1).  presorted: (origin grid only) rows are already
+    grouped by this grid's cells (hierarchical moment keys), so no sort."""
     dev = xyz.device
     leaf_f = torch.tensor(leaf, dtype=torch.float32, device=dev)
-    origin_f = origin.to(torch.float32)
-    rel = torch.floor((xyz - origin_f) / leaf_f).to(torch.int32) + 512
-    mask = mask & torch.all((rel >= 0) & (rel < 1024), dim=1)
-    key = torch.where(mask, _pack_rel(rel), _BIG)
-    key_s, xyz_s = (key, xyz) if presorted else _sorted_by(key, xyz)
-    valid_s = key_s < _BIG
-    cs = torch.where(valid_s[:, None], _unpack_rel(key_s) - 512, _BIG)
+    origin_f = (torch.zeros(3, device=dev) if origin is None
+                else origin.to(torch.float32))
+    c = torch.floor((xyz - origin_f) / leaf_f).to(torch.int32)
+    wts = (torch.ones(xyz.shape[0], device=dev) if weights is None
+           else weights.to(xyz.dtype))
+    if origin is not None:
+        rel = c + 512
+        mask = mask & torch.all((rel >= 0) & (rel < 1024), dim=1)
+        key = torch.where(mask, _pack_rel(rel), _BIG)
+        key_s, xyz_s, wts_s = ((key, xyz, wts) if presorted
+                               else _sorted_by(key, xyz, wts))
+        valid_s = key_s < _BIG
+        cs = torch.where(valid_s[:, None], _unpack_rel(key_s) - 512, _BIG)
+    else:
+        k = [torch.where(mask, c[:, i], _BIG) for i in range(3)]
+        order = _stable_order(*k)
+        cs = torch.stack(k, dim=1)[order]
+        valid_s, xyz_s, wts_s = mask[order], xyz[order], wts[order]
 
     new_voxel = _new_runs(cs, valid_s)
     seg = torch.cumsum(new_voxel.to(torch.int64), 0) - 1
@@ -162,9 +179,11 @@ def build(xyz: Tensor, mask: Tensor, leaf: float, capacity: int,
     r_s = (xyz_s - center_s) * w[:, None]
     iu, ju = [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]
     outer6 = r_s[:, iu] * r_s[:, ju]
-    moments = segments.segment_sum(torch.cat([r_s, outer6, w[:, None]], dim=1),
-                                   seg, capacity)
+    moments = segments.segment_sum(
+        torch.cat([r_s, outer6, w[:, None], (w * wts_s)[:, None]], dim=1),
+        seg, capacity)
     rsums, sq6, cnt = moments[:, :3], moments[:, 3:9], moments[:, 9]
+    cnt_pts = moments[:, 10]   # true point support (= cnt without weights)
     coords_v, seg_occ = segments.segment_first(cs, seg, capacity)
     coords_v = torch.where(seg_occ[:, None], coords_v, -_BIG)
     center_v = origin_f + (coords_v.to(xyz.dtype) + 0.5) * leaf_f
@@ -192,7 +211,8 @@ def build(xyz: Tensor, mask: Tensor, leaf: float, capacity: int,
         if plane_min_spread > 0.0:
             spread_ok = (torch.sqrt(torch.clamp(vals[:, 1], min=0.0))
                          >= plane_min_spread)
-            to_line = quality_ok & ~spread_ok
+            to_line = quality_ok & ~spread_ok & (
+                cnt_pts >= plane_spread_min_count)
             direction = torch.where(to_line[:, None],
                                     _unit(vecs[:, 2, :]) * LINE_DIR_SCALE,
                                     direction)
@@ -323,19 +343,45 @@ def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int, *,
                   trim_radius: Optional[float] = None,
                   leaf: Optional[float] = None,
                   origin: Optional[Tensor] = None, group_bits: int = 0,
-                  min_cnt: float = 0.5):
+                  min_cnt: float = 0.5, method: str = "sort",
+                  return_stats: bool = True):
     """Merge two sorted moment tables -> (merged, dropped): equal keys sum;
     cells below `min_cnt` die (an eviction's ``scale_moments(m, -1)``
     cancels counts exactly); with `trim_center`, cells farther than
     `trim_radius` from it die too (the reference's surrounding-keyframe
     radius, ``extractNearby`` :862-897, at cell granularity; `leaf` and
     `origin` decode the cell centres).  Survivors stay in key order; beyond
-    `capacity` the highest keys drop, and `dropped` counts them."""
-    n_tot = a.key.shape[0] + b.key.shape[0]
+    `capacity` the highest keys drop, and `dropped` counts them.
+
+    method: how the merged order is formed, "sort" (one stable sort of
+    both tables) or "rank" (each b key's rank in a by a binary search, a
+    filling the free slots in order); both give the same table.
+    return_stats=False returns the merged table alone (msst_tpu's default;
+    the port's callers all read `dropped`, so it is the port's default)."""
+    na, nb = a.key.shape[0], b.key.shape[0]
+    n_tot = na + nb
     dev = a.key.device
-    vals = torch.cat([torch.cat([a.rsum, a.cnt[:, None]], dim=1),
-                      torch.cat([b.rsum, b.cnt[:, None]], dim=1)])
-    key_s, vals_s = _sorted_by(torch.cat([a.key, b.key]), vals)
+    avals = torch.cat([a.rsum, a.cnt[:, None]], dim=1)
+    bvals = torch.cat([b.rsum, b.cnt[:, None]], dim=1)
+    if method == "sort":
+        key_s, vals_s = _sorted_by(torch.cat([a.key, b.key]),
+                                   torch.cat([avals, bvals]))
+    elif method == "rank":
+        # b_j goes after the equal a keys; a_i fills the free slots in order
+        pos_b = (torch.arange(nb, device=dev)
+                 + torch.searchsorted(a.key, b.key, right=True))
+        free = torch.ones(n_tot, dtype=torch.bool, device=dev).index_fill_(
+            0, pos_b, False)
+        rank = torch.cumsum(free.to(torch.int64), 0) - 1
+        slot = torch.where(free, rank, na)
+        pos_a = torch.zeros(na + 1, dtype=torch.int64, device=dev).index_copy_(
+            0, slot, torch.arange(n_tot, device=dev))[:na]
+        key_s = torch.empty(n_tot, dtype=a.key.dtype, device=dev)
+        key_s[pos_a], key_s[pos_b] = a.key, b.key
+        vals_s = avals.new_empty((n_tot, 4))
+        vals_s[pos_a], vals_s[pos_b] = avals, bvals
+    else:
+        raise ValueError(f"method {method!r}: 'sort' or 'rank'")
     valid_s = key_s < _BIG
     new_cell = _new_runs(key_s, valid_s)
     seg = torch.cumsum(new_cell.to(torch.int64), 0) - 1
@@ -359,21 +405,27 @@ def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int, *,
         0, dest, torch.where(alive[:, None], sums, 0.0))
     out = VoxelMoments(key=out_key[:capacity], rsum=out_vals[:capacity, :3],
                        cnt=out_vals[:capacity, 3])
+    if not return_stats:
+        return out
     n_alive = torch.sum(alive.to(torch.int32))
     return out, torch.clamp(n_alive - capacity, min=0)
 
 
 def moments_centroids(m: VoxelMoments, leaf: float, origin: Tensor,
-                      group_bits: int = 0):
-    """(xyz, mask): one centroid pseudo-point per occupied cell — the
+                      group_bits: int = 0, return_counts: bool = False):
+    """(xyz, mask[, cnt]): one centroid pseudo-point per occupied cell — the
     input of the coarse feature fit, identical to the reference's
-    centroid-downsampled local map."""
+    centroid-downsampled local map.  return_counts adds each centroid's
+    true point count (the fit's `weights`)."""
     mask = m.key < _BIG
     leaf_f = torch.tensor(leaf, dtype=torch.float32, device=m.key.device)
     center = _decode_center(m.key, leaf_f, origin.to(torch.float32),
                             group_bits)
     xyz = center + m.rsum / torch.clamp(m.cnt, min=1.0)[:, None]
-    return torch.where(mask[:, None], xyz, 0.0), mask
+    xyz = torch.where(mask[:, None], xyz, 0.0)
+    if return_counts:
+        return xyz, mask, torch.where(mask, m.cnt, 0.0)
+    return xyz, mask
 
 
 # ---------------------------------------------------------------------------
@@ -517,3 +569,24 @@ lookup_cat.launches = 0
 def lookup(vmap: VoxelFeatureMap, q_xyz: Tensor, q_mask: Tensor) -> VoxelLookup:
     """One map's lookup: :func:`lookup_cat` with every query in map a."""
     return lookup_cat(vmap, vmap, q_xyz, q_mask, q_xyz.shape[0])
+
+
+def plane_residuals(vmap: VoxelFeatureMap, q_xyz: Tensor, hit: VoxelLookup
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    """(n, r, ok): each query's signed point-to-plane residual against its
+    voxel's plane, from the lookup's gathered rows."""
+    r = torch.sum(q_xyz * hit.direction, dim=1) + hit.d
+    return hit.direction, r, hit.found
+
+
+def line_residuals(vmap: VoxelFeatureMap, q_xyz: Tensor, hit: VoxelLookup
+                   ) -> tuple[Tensor, Tensor, Tensor]:
+    """(grad, r, ok): each query's point-to-line distance and its unit
+    gradient."""
+    delta = q_xyz - hit.mean
+    v = hit.direction
+    along = torch.sum(delta * v, dim=1, keepdim=True)
+    perp = delta - along * v
+    r = torch.linalg.norm(perp, dim=1)
+    grad = perp / torch.clamp(r, min=1e-9)[:, None]
+    return grad, r, hit.found

@@ -255,7 +255,7 @@ def test_decode_pcap_against_msst_tpu(tmp_path, capsys, monkeypatch):
     stamps = 1.6e9 + 0.5 + np.arange(len(pk)) * 0.0012
     pcap, out = str(tmp_path / "in.pcap"), str(tmp_path / "out.pcd")
     chip_smoke._write_pcap(pcap, pk, stamps)
-    tcli.main(["decode-pcap", pcap, out, "--device", "cpu"])
+    tcli.main(["decode-pcap", pcap, out])
     text = capsys.readouterr().out
     monkeypatch.setattr(jp, "_load_native", lambda: False)
     xyz, ring, trel, inten = jp.packets_to_scan(pk, stamps=stamps)
@@ -267,7 +267,7 @@ def test_decode_pcap_against_msst_tpu(tmp_path, capsys, monkeypatch):
                                atol=PCAP_ATOL)
     with pytest.raises(SystemExit, match="no 1206-byte packets"):
         chip_smoke._write_pcap(pcap, pk[:0], stamps[:0])
-        tcli.main(["decode-pcap", pcap, out, "--device", "cpu"])
+        tcli.main(["decode-pcap", pcap, out])
 
 
 def test_viz_serve_live_reload(tmp_path, monkeypatch):
@@ -301,17 +301,40 @@ def test_viz_serve_live_reload(tmp_path, monkeypatch):
         srv.server_close()
     served = []
     monkeypatch.setattr(t_vh, "serve", lambda *a, **k: served.append((a, k)))
-    tcli.main(["viz-serve", d, "--port", "9911", "--device", "cpu"])
+    tcli.main(["viz-serve", d, "--port", "9911"])
     assert served == [((d,), {"port": 9911})]
 
 
 @pytest.mark.parametrize("argv", [
     ["lio-kitti", "DIR"],
     ["lio-bag", "BAG", "--cloud-topic", "/p", "--imu-topic", "/i"],
-    ["viz-serve", "DIR"],
-    ["decode-pcap", "IN.pcap", "OUT.pcd"],
 ])
 def test_commands_raise_without_a_card(argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(argv)
+
+
+@pytest.mark.parametrize("cmd", ["viz-serve", "decode-pcap"])
+def test_host_commands_take_no_device(cmd, tmp_path, capsys, monkeypatch):
+    """viz-serve and decode-pcap use no card: without one, and without a
+    --device option (which they no longer take), each runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if cmd == "viz-serve":
+        served = []
+        monkeypatch.setattr(t_vh, "serve",
+                            lambda *a, **k: served.append((a, k)))
+        tcli.main(["viz-serve", str(tmp_path)])
+        assert served == [((str(tmp_path),), {"port": 8642})]
+    else:
+        pk = np.fromfile(os.path.join(os.path.dirname(__file__), "data",
+                                      "golden_packets.bin"), np.uint8)
+        pcap, out = str(tmp_path / "in.pcap"), str(tmp_path / "out.pcd")
+        chip_smoke._write_pcap(pcap, pk.reshape(4, 1206),
+                               1.6e9 + np.arange(4) * 0.0012)
+        tcli.main(["decode-pcap", pcap, out])
+        assert "4 packets" in capsys.readouterr().out
+        assert len(read_pcd(out)["xyz"]) > 100
+    args = ["DIR"] if cmd == "viz-serve" else ["IN.pcap", "OUT.pcd"]
+    with pytest.raises(SystemExit):   # argparse: no such option
+        tcli.main([cmd, *args, "--device", "cpu"])
