@@ -146,7 +146,23 @@ Phases, one line each; any failure exits non-zero:
    2's workers.  14c: the grid ``registration.icp_point2point`` (B2 at
    k = 1, C = 16, phase 3b's first shape) on phase 11's master sweep
    recovers a known offset and agrees with the CPU twin.
-Each of 6-14 drives the card and fails the run when its check fails.
+15. windowed dispatch at bench.py's protocol (``LioSam(window=64)``):
+   15a bench.py's phase 1, the 256-scan bench drive (seed 7) with the
+   range-image grids attached, the first window synchronously (the boot
+   and its re-feed of that whole window) and the other 192 scans through
+   ``process_window_async``: every window in the hoisted range-image
+   layout, B1 once per lookup, bench.py's gates; scans/s over the async
+   part, ms a window (p50, p99; CUDA events on the dispatching stream),
+   the host stages' seconds (pack, dispatch, flush_get).  15b bench.py's
+   loop phase the same way (340 scans, seed 8, loop on): the gates, a
+   loop closed, B3 launched.  15c W = 64 with ``quantized_upload=False``
+   and no grids over 4a's drive: keyframe poses and trajectory
+   bit-identical to 4a's W = 1 drive (both boot on 64 scans), and the
+   host syncs a scan (``torch.cuda.set_sync_debug_mode``).  15d bench.py's
+   live latency windows 1 (96 windows) and 4 (24), seed 9: process_window
+   to the poses on the host and the scan-to-pose latency at 10 Hz, p50
+   and p99.
+Each of 6-15 drives the card and fails the run when its check fails.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  --out DIR also writes the per-scan
@@ -3570,6 +3586,314 @@ def phase_grid_icp(scene, card, dev_name="cuda"):
             "fitness": float(res.fitness)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: windowed dispatch, bench.py's protocol at W = 64
+# ---------------------------------------------------------------------------
+
+WINDOW = 64              # bench.py's MSST_BENCH_WINDOW default
+LAT_WINDOWS = (1, 4)     # bench.py's MSST_BENCH_LATENCY_WINDOW default
+LAT_SCANS = 96           # bench.py: 96 windows of 1, 24 of 4 (seed 9)
+GRID_KEYS = ("ranges", "azimuth", "col_time", "elev")
+SCAN_KEYS = ("xyz", "ring", "time_rel", "scan_start", "imu_t", "imu_gyro",
+             "imu_acc", "imu_rpy")
+
+
+def _window_dicts(scans, grids=True):
+    """bench.py's ``_dicts``: the scan, its IMU and, with `grids`, the
+    range-image grids that select the range-image upload."""
+    keys = SCAN_KEYS + (GRID_KEYS if grids else ())
+    return [{k: s[k] for k in keys} for s in scans]
+
+
+def _windows_of(data, w, grids=True):
+    return [_window_dicts(data[i:i + w], grids)
+            for i in range(0, len(data), w)]
+
+
+@contextmanager
+def _watched_windows(lio, dev_name):
+    """Record each window ``lio`` dispatches (in whichever thread): its
+    upload layout (the decoder ``select_window_fn`` picks), the host ms of
+    the dispatch and, on the card, CUDA events around it on the dispatching
+    stream (read after the drive: no extra synchronisation)."""
+    import torch
+
+    from msst_torch.models.liosam.mapping import select_window_fn
+
+    rec, inner = [], lio._dispatch_window
+
+    def watched(buf, times, prev_count):
+        ev = None
+        if dev_name == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        t0 = time.perf_counter()
+        out = inner(buf, times, prev_count)
+        host_ms = 1000.0 * (time.perf_counter() - t0)
+        if ev is not None:
+            ev[1].record()
+        rec.append({"layout": select_window_fn(lio.p, buf).__name__,
+                    "scans": len(times), "host_ms": host_ms, "events": ev})
+        return out
+
+    lio._dispatch_window = watched
+    try:
+        yield rec
+    finally:
+        lio._dispatch_window = inner
+
+
+def _window_ms(rec):
+    """ms of each recorded window: the card's time between the events
+    around its dispatch where there are events, else the host's."""
+    return np.asarray([r["events"][0].elapsed_time(r["events"][1])
+                       if r["events"] else r["host_ms"] for r in rec])
+
+
+def _window_drive(tag, what, params, data, card, dev_name="cuda"):
+    """bench.py's phase 1 (loop off) or 2 (loop on) at W = 64 on `data`:
+    ``LioSam(params, window=64)`` takes the first window synchronously (the
+    dynamic-init boot and its re-feed of that whole window), then the rest
+    through ``process_window_async``, the range-image grids attached.  The
+    kernel launch counters are set to 0 just before the drive and read just
+    after; every window must take the hoisted range-image layout (ri2); B1
+    must launch once per lookup the Gauss-Newton loops took; bench.py's
+    gates.  Scans/s over the async part, ms a window, timings."""
+    import torch
+
+    from msst_torch.models.liosam import LioSam
+    from msst_torch.models.liosam import pipeline as tpipe
+    from msst_torch.ops import gather, knn, registration, voxelmap
+
+    kernels = {"voxel_lookup_cat": voxelmap.lookup_cat,
+               "knn_query": knn.query, "gather_rows": gather.gather_rows}
+    lio = LioSam(params, device=dev_name, window=WINDOW)
+    windows = _windows_of(data, WINDOW)
+    s2m_inner, loop_inner = registration.scan_to_map_voxel, \
+        tpipe.loop_closure_step
+    s2m_runs, attempts = [], []
+
+    def counted_s2m(*args, **kwargs):
+        out = s2m_inner(*args, **kwargs)
+        s2m_runs.append(out)
+        return out
+
+    def counted_loop(*args, **kwargs):
+        attempts.append(1)
+        return loop_inner(*args, **kwargs)
+
+    registration.scan_to_map_voxel = counted_s2m
+    tpipe.loop_closure_step = counted_loop
+    try:
+        with _watched_windows(lio, dev_name) as rec:
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            lio.process_window(windows[0])
+            if dev_name == "cuda":
+                torch.cuda.synchronize()
+            boot_s = time.perf_counter() - t0
+            n_boot = len(rec)
+            lio.timings.clear()
+            t0 = time.perf_counter()
+            futs = [lio.process_window_async(b) for b in windows[1:]]
+            for f in futs:
+                f.result()
+            if dev_name == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lio.flush()
+            launched = {name: fn.launches for name, fn in kernels.items()}
+    finally:
+        registration.scan_to_map_voxel = s2m_inner
+        tpipe.loop_closure_step = loop_inner
+    layouts = sorted({r["layout"] for r in rec})
+    if layouts != ["odometry_window_flat_ri2"]:
+        raise AssertionError(f"{tag}: the windows took {layouts}, not the "
+                             "hoisted range-image layout")
+    gn_total = int(torch.stack([r.iterations for r in s2m_runs]).sum())
+    lookups, reassoc = _check_lookups(tag, launched["voxel_lookup_cat"],
+                                      s2m_runs, gn_total)
+    n_async = sum(len(b) for b in windows[1:])
+    ms = _window_ms(rec)
+    steady = ms[n_boot:]
+    max_err, final_err, drift, path_len = _accuracy(lio.trajectory, data)
+    res = {
+        "scans": len(data), "window": WINDOW, "layouts": layouts,
+        "windows": len(rec), "boot_windows": n_boot, "boot_s": boot_s,
+        "async_wall_s": wall, "scans_per_s": n_async / wall,
+        "window_ms": ms.tolist(),
+        "window_ms_p50": float(np.percentile(steady, 50)),
+        "window_ms_p99": float(np.percentile(steady, 99)),
+        "launched": launched, "lookups": lookups, "reassociations": reassoc,
+        "gn_iterations": gn_total, "loop_attempts": len(attempts),
+        "loops_closed": int(lio.state.n_loop),
+        "keyframes": int(lio.state.kf.count),
+        "timings_s": dict(lio.timings),
+        "max_err_m": max_err, "final_err_m": final_err,
+        "drift_pct_per_m": drift, "path_len_m": path_len,
+        "map_health": lio.map_health,
+    }
+    print(f"phase {tag}: LioSam {dev_name}, window={WINDOW}, {what}, over "
+          f"{len(data)} scans x {N_SCAN}x{HORIZON}: the boot window and its "
+          f"re-feed ({n_boot} windows) in {boot_s:.2f} s, then {n_async} "
+          f"scans through process_window_async in {wall:.3f} s = "
+          f"{res['scans_per_s']:.2f} scans/s; ms a window (device, between "
+          f"events on the dispatching stream) p50 "
+          f"{res['window_ms_p50']:.2f} p99 {res['window_ms_p99']:.2f} over "
+          f"{len(steady)} windows; layouts {layouts}; launches {launched} "
+          f"(B1 {lookups} lookups, {reassoc} re-associations, {gn_total} GN "
+          f"iterations); {len(attempts)} loop attempts dispatched, "
+          f"{res['loops_closed']} loops closed; {res['keyframes']} "
+          f"keyframes; max err {max_err:.4f} m, final err {final_err:.4f} "
+          f"m, drift {drift:.4f} %/m over {path_len:.1f} m; host seconds of "
+          f"the async part {{"
+          + ", ".join(f"{k}: {v:.3f}" for k, v in sorted(
+              res["timings_s"].items())) + f"}} [{card}]", flush=True)
+    if drift > DRIFT_GATE_PCT or final_err > FINAL_GATE_M:
+        raise AssertionError(
+            f"{tag}: accuracy gate: drift {drift:.4f} %/m (<= "
+            f"{DRIFT_GATE_PCT}), final err {final_err:.4f} m (<= "
+            f"{FINAL_GATE_M})")
+    return res
+
+
+def phase_window_vs_single(data, rec4a, card, dev_name="cuda"):
+    """15c: W = 64 with ``quantized_upload=False`` and no grids (the window
+    carries the scans' float32 rows) over 4a's drive, against 4a's W = 1
+    drive booting on 64 scans: the keyframe poses and the trajectory bit
+    for bit.  The windows after the boot but the last are timed (ms a
+    window on the card, as in 15a); over the last the host syncs are
+    counted (``torch.cuda.set_sync_debug_mode("warn")``): the window step's
+    core, which every layout shares."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from msst_torch.models.liosam import LioSam
+    from msst_torch.ops import voxelmap
+
+    p = dataclasses.replace(_params("voxel"), quantized_upload=False)
+    lio = LioSam(p, device=dev_name, window=WINDOW)
+    windows = _windows_of(data, WINDOW, grids=False)
+    with _watched_windows(lio, dev_name) as rec:
+        voxelmap.lookup_cat.launches = 0
+        for b in windows[:-1]:
+            lio.process_window(b)
+        n_timed = len(rec) - 2          # the boot window and its re-feed
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if dev_name == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                lio.process_window(windows[-1])
+            finally:
+                if dev_name == "cuda":
+                    torch.cuda.set_sync_debug_mode("default")
+        launches = voxelmap.lookup_cat.launches
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    n_counted = len(windows[-1])
+    got = _record(lio)
+    layouts = sorted({r["layout"] for r in rec})
+    same = {k: bool(np.array_equal(got[k], rec4a[k]))
+            for k in ("pose6", "traj")}
+    ms = _window_ms(rec)[2:2 + n_timed]
+    res = {"layouts": layouts, "same_as_4a": same,
+           "keyframes": len(got["pose6"]), "launches": launches,
+           "window_ms": ms.tolist(), "syncs": syncs,
+           "syncs_per_scan": syncs / n_counted}
+    print(f"phase 15c: LioSam {dev_name}, window={WINDOW}, "
+          f"quantized_upload=False, no grids ({layouts}) over 4a's "
+          f"{len(data)} scans: {res['keyframes']} keyframes, bit-identical "
+          f"to 4a (W=1, boot {BOOT_SCANS}): {same}; {launches} B1 launches; "
+          f"ms a window after the boot {np.round(ms, 2).tolist()}; {syncs} "
+          f"host syncs over the last window's {n_counted} scans = "
+          f"{res['syncs_per_scan']:.2f} a scan [{card}]", flush=True)
+    if layouts != ["odometry_window_flat"] or not all(same.values()):
+        raise AssertionError(f"15c: W={WINDOW} differs from 4a's W=1 drive "
+                             f"({same}, layouts {layouts})")
+    if launches == 0:
+        raise AssertionError("15c: the window drive never launched B1")
+    return res
+
+
+def _lat_stats(proc_ms, window):
+    """bench.py's scan-to-pose latency under live 10 Hz arrival: scan i of a
+    window waits (W-1-i) scan periods for the window to fill, then the
+    window's processing and pose readback."""
+    lats = [(window - 1 - i) * SCAN_DT * 1000.0 + pm
+            for pm in proc_ms for i in range(window)]
+    return {"window": window,
+            "proc_ms_p50": float(np.percentile(proc_ms, 50)),
+            "proc_ms_p99": float(np.percentile(proc_ms, 99)),
+            "scan_to_pose_ms_p50": float(np.percentile(lats, 50)),
+            "scan_to_pose_ms_p99": float(np.percentile(lats, 99))}
+
+
+def phase_live_latency(lat_data, card, dev_name="cuda"):
+    """15d: bench.py's live latency windows (``_measure_latency``): W = 1
+    over 96 windows and W = 4 over 24, seed 9, loop off, the grids
+    attached, a readback interval too large to flush; each window's
+    ``process_window`` timed to its poses on the host, the first max(2,
+    8 // W + 2) windows (the boot and its re-feed) dropped."""
+    from msst_torch.models.liosam import LioSam
+    from msst_torch.ops import voxelmap
+
+    out = {}
+    for lw in LAT_WINDOWS:
+        n_win = LAT_SCANS // lw
+        lio = LioSam(_params("voxel"), device=dev_name, window=lw,
+                     readback_interval=10 ** 9)
+        drop = max(2, lio._boot_n // lw + 2)
+        voxelmap.lookup_cat.launches = 0
+        proc = []
+        for w in range(n_win):
+            batch = _window_dicts(lat_data[w * lw:(w + 1) * lw])
+            t0 = time.perf_counter()
+            outs = lio.process_window(batch)
+            outs.pose6.cpu()     # the poses are on the host
+            proc.append(1000.0 * (time.perf_counter() - t0))
+        launches = voxelmap.lookup_cat.launches
+        st = _lat_stats(proc[drop:], lw)
+        st.update(launches=launches, dropped=drop, proc_ms=proc)
+        out[f"w{lw}"] = st
+        print(f"phase 15d: LioSam {dev_name}, live window={lw} over {n_win} "
+              f"windows (first {drop} dropped): process_window to poses on "
+              f"the host p50 {st['proc_ms_p50']:.2f} ms p99 "
+              f"{st['proc_ms_p99']:.2f} ms; scan-to-pose at 10 Hz p50 "
+              f"{st['scan_to_pose_ms_p50']:.2f} ms p99 "
+              f"{st['scan_to_pose_ms_p99']:.2f} ms; {launches} B1 launches "
+              f"[{card}]", flush=True)
+        if launches == 0:
+            raise AssertionError(f"15d: window={lw} never launched B1")
+    return out
+
+
+def phase_window(data, loop_data, lat_data, rec4a, card, dev_name="cuda"):
+    """Phase 15: 15a bench.py's phase 1 at W = 64 (seed 7, 256 scans, loop
+    off), 15b its loop phase (seed 8, 340 scans, loop on: a loop must
+    close, B3 must launch), 15c W = 64 against 4a bit for bit, 15d the live
+    latency windows."""
+    t0 = time.perf_counter()
+    res = {"15a": _window_drive("15a", "loop closure off",
+                                _params("voxel"), data, card, dev_name)}
+    res["15b"] = _window_drive("15b", "loop closure on",
+                               _params("voxel", loop=True), loop_data, card,
+                               dev_name)
+    b = res["15b"]
+    if b["loops_closed"] < 1 or b["launched"]["gather_rows"] == 0:
+        raise AssertionError(f"15b: {b['loops_closed']} loops closed, "
+                             f"{b['launched']['gather_rows']} B3 launches")
+    res["15c"] = phase_window_vs_single(data, rec4a, card, dev_name)
+    res["15d"] = phase_live_latency(lat_data, card, dev_name)
+    res["s"] = time.perf_counter() - t0
+    print(f"phase 15: {res['s']:.1f} s", flush=True)
+    return res
+
+
 def _build_kernels(names):
     """One nvcc per source, all started together; then load each library.
     Returns the seconds each build took (0 where it was already built)."""
@@ -3643,6 +3967,7 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
         loop_job = pool.submit(_simulate, N_LOOP_SCANS, 8)
         kitti_job = pool.submit(_write_kitti_drive,
                                 os.path.join(workdir, "kitti"))
+        lat_job = pool.submit(_simulate, LAT_SCANS, 9)
         # phase 14's sessions, 14b's (1800 columns) first
         ms_jobs = [pool.submit(_ms_session, j, horizon)
                    for horizon in (HORIZON, 360) for j in range(MS_SLOTS)]
@@ -3655,8 +3980,10 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
         usage = _resource_usage(build_s)
         data, loop_data = bench_job.result(), loop_job.result()
         kitti = kitti_job.result()
+        lat_data = lat_job.result()
         ms_scans = dict(job.result() for job in ms_jobs)
-    print(f"        simulated {N_SCANS} + {N_LOOP_SCANS} scans, wrote "
+    print(f"        simulated {N_SCANS} + {N_LOOP_SCANS} + {LAT_SCANS} "
+          f"scans, wrote "
           f"the {KITTI_SCANS}-sweep KITTI drive and simulated phase 14's "
           f"2 x {MS_SLOTS} sessions of {MS_SCANS} scans in "
           f"{time.perf_counter() - t_sim:.1f} s", flush=True)
@@ -3690,7 +4017,8 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
     res["repeat"] = phase_repeat(
         {"4a": (_params("voxel"), data), "4b": (_params("knn"), data),
          "4c": (_params("voxel", loop=True), loop_data)}, records, card)
-    del loop_data, records
+    rec4a = records.pop("4a")   # phase 15c's reference
+    del records
     res["eviction"] = {m: phase_eviction(m, data, card)
                        for m in ("voxel", "knn")}
     res["rebuild"] = {s: phase_rebuild(s, data, card)
@@ -3741,6 +4069,14 @@ def _main(args, card, t_start, t_sim, workdir) -> int:
         res["multisession"]["14b"]["merge"]["selective_B3"])
     b2["grid_icp_launches"] = res["multisession"]["14c"]["launches"]
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+    res["window"] = phase_window(data, loop_data, lat_data, rec4a, card)
+    del loop_data, lat_data, rec4a
+    b1["window_15a_launches"] = res["window"]["15a"]["launched"][
+        "voxel_lookup_cat"]
+    b1["window_15b_launches"] = res["window"]["15b"]["launched"][
+        "voxel_lookup_cat"]
+    b3["window_15b_launches"] = res["window"]["15b"]["launched"][
+        "gather_rows"]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -1,9 +1,11 @@
 """LIO-SAM front-end: deskew, range image, LOAM features (port of
-``msst_tpu.models.liosam.frontend.run_frontend``; the reference's
+``msst_tpu.models.liosam.frontend``'s ``run_frontend`` for point rows and
+``run_frontend_grid`` for range-image grids; the reference's
 ``imageProjection`` + ``featureExtraction`` processes)."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -62,6 +64,43 @@ def run_frontend(scan: ScanInput, p) -> FrontendOutput:
                      p.lidar_min_range, p.lidar_max_range, p.downsample_rate,
                      column_mode="counter" if p.sensor == "livox"
                      else "azimuth")
+    return _loam_features(ri.extract_rings(img), p)
+
+
+def run_frontend_grid(rng_grid: Tensor, az: Tensor, tcol: Tensor,
+                      elev: Tensor, scan_start: Tensor, imu_t: Tensor,
+                      imu_gyro: Tensor, imu_acc: Tensor, imu_mask: Tensor,
+                      imu_available: Tensor, p) -> FrontendOutput:
+    """:func:`run_frontend` for a scan shipped as a range image: ranges
+    (S, H), azimuth (H,), firing time (H,) of each column and elevation
+    (S,) of each ring (the upload layouts ``mapping.odometry_window_flat_ri``
+    and ``_ri2``).  The projection (``projectPointCloud``,
+    ``imageProjection.cpp:544-562``) is then the identity: row = ring,
+    column = grid column, one point a pixel, and the deskew rotation is
+    interpolated once per column.  The firing time rides as the 1-wide
+    attr, as in :func:`run_frontend`."""
+    S, H = rng_grid.shape
+    imu_win = ri.ImuWindow(imu_t, imu_gyro, imu_acc, imu_mask)
+    times, rots = ri.imu_rotation_timeline(imu_win)
+    n_imu = torch.sum(imu_mask.to(torch.int32))
+
+    ce, se = torch.cos(elev), torch.sin(elev)                 # (S,)
+    ca, sa = torch.cos(az), torch.sin(az)                     # (H,)
+    xyz = torch.stack([rng_grid * (ce[:, None] * ca[None, :]),
+                       rng_grid * (ce[:, None] * sa[None, :]),
+                       rng_grid * se[:, None]], dim=-1)       # (S, H, 3)
+    deskewed = ri.deskew_grid(xyz, tcol, times, rots, n_imu,
+                              t_start=scan_start,
+                              enabled=imu_available & (n_imu > 1))
+    # the range and ring gates of projectPointCloud :521-543 (pad pixels
+    # carry range 0 and fail the min-range gate)
+    valid = (rng_grid >= p.lidar_min_range) & (rng_grid <= p.lidar_max_range)
+    if p.downsample_rate > 1:
+        valid &= (torch.arange(S, device=rng_grid.device)
+                  % p.downsample_rate == 0)[:, None]
+    attrs = tcol[None, :, None].expand(S, H, 1)
+    img = ri.RangeImage(torch.where(valid, rng_grid, math.inf), deskewed,
+                        attrs, valid)
     return _loam_features(ri.extract_rings(img), p)
 
 

@@ -1,6 +1,6 @@
-"""The LIO odometry step (port of ``msst_tpu.models.liosam.mapping``'s
-single-scan path; the reference's ``mapOptmization`` per-scan pipeline,
-``laserCloudInfoHandler`` :237-271):
+"""The LIO odometry step (port of ``msst_tpu.models.liosam.mapping``; the
+reference's ``mapOptmization`` per-scan pipeline, ``laserCloudInfoHandler``
+:237-271):
 
 * initial guess from the IMU filter (``updateInitialGuess`` :786-845),
 * scan downsample (:955-967) + scan-to-map Gauss-Newton (:1282-1310),
@@ -15,6 +15,11 @@ single-scan path; the reference's ``mapOptmization`` per-scan pipeline,
 
 msst_tpu compiles this into one program with ``lax.cond`` branches; here the
 branches are Python ``if``s on flags read back from the device.
+
+Windowed dispatch (``odometry_window_*``): W scans come in one upload, in
+one of msst_tpu's four layouts byte for byte (float32 rows, int16-quantized
+rows, range-image grids per scan or once a window), are decoded on the
+device, prepared slot by slot and run through the same core in order.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from ...ops import imu as imu_ops
 from ...ops import knn, registration, se3, voxel, voxelmap
 from ...ops.pointcloud import Cloud, compact
 from . import imu_fusion
-from .frontend import ScanInput, run_frontend
+from .frontend import ScanInput, run_frontend, run_frontend_grid
 from .params import LioParams
 from .state import KeyframeStore, LioState, LocalMap, _empty_local_map
 
@@ -110,6 +115,243 @@ def odometry_step_packed(state: LioState, points: Tensor, aux: Tensor,
 def odometry_step(state: LioState, inp: StepInput, p: LioParams):
     """One scan through prepare + core."""
     return odometry_core(state, prepare_scan(inp, p), p)
+
+
+# ---------------------------------------------------------------------------
+# windowed dispatch: W scans from one upload
+# ---------------------------------------------------------------------------
+
+
+def _passthrough_output(state: LioState, p: LioParams) -> StepOutput:
+    """StepOutput for a padded (invalid) window slot: state unchanged."""
+    dev = state.pose6.device
+    pose = se3.Pose.from_vec6(state.pose6)
+    occ, dropped = _map_telemetry(state.local_map, p)
+    none = torch.tensor(0, dtype=torch.int64, device=dev)
+    return StepOutput(
+        pose=pose, pose_matrix=pose.to_matrix(), pose6=state.pose6,
+        velocity=state.filter.nav.v, bias=state.filter.bias,
+        degenerate=state.degenerate,
+        is_keyframe=torch.tensor(False, device=dev),
+        n_corner=none, n_surf=none, kf_count=state.kf.count,
+        s2m_iterations=torch.tensor(0, dtype=torch.int32, device=dev),
+        map_occupancy=occ, map_dropped=dropped,
+    )
+
+
+def _stack(items):
+    """Stack a list of equal NamedTuple trees of tensors leaf by leaf."""
+    first = items[0]
+    if isinstance(first, tuple):
+        return type(first)(*(_stack([it[i] for it in items])
+                             for i in range(len(first))))
+    return torch.stack(items)
+
+
+def _valid_slots(aux_w: Tensor, p: LioParams, n_valid: Optional[int]):
+    """The window's valid slots as a host list: the first `n_valid` (the
+    packer puts the scans first), else read from the scan-valid flags
+    (aux row 2T, column 7) in one copy."""
+    W = aux_w.shape[0]
+    if n_valid is None:
+        return (aux_w[:, 2 * p.imu_window, 7] > 0.5).tolist()
+    return [i < n_valid for i in range(W)]
+
+
+def _window_core(state: LioState, preps: list, valid: list, p: LioParams):
+    """The estimator core over a window of prepared scans, slot by slot:
+    ``odometry_core`` for each valid slot, the state echoed for each padded
+    one (msst_tpu's ``lax.cond`` in a ``lax.scan``; here the host knows the
+    valid slots).  Returns (state, StepOutput stacked on a leading W axis)."""
+    outs = []
+    for ps, ok in zip(preps, valid):
+        if ok:
+            state, out = odometry_core(state, ps, p)
+        else:
+            out = _passthrough_output(state, p)
+        outs.append(out)
+    return state, _stack(outs)
+
+
+def odometry_window_packed(state: LioState, points_w: Tensor, aux_w: Tensor,
+                           p: LioParams, n_valid: Optional[int] = None):
+    """W scans of packed inputs: ``prepare_scan`` for each valid slot, then
+    the core over the window.  Same results as W ``odometry_step_packed``
+    calls; padded slots (aux[2T, 7] = 0) pass the state through.
+
+    points_w: (W, max_points, 5);  aux_w: (W, 2T+3, 8)"""
+    valid = _valid_slots(aux_w, p, n_valid)
+    preps = [prepare_scan(unpack_step_input(points_w[i], aux_w[i], p), p)
+             if ok else None for i, ok in enumerate(valid)]
+    return _window_core(state, preps, valid, p)
+
+
+def odometry_window_grids(state: LioState, r: Tensor, az: Tensor,
+                          tcol: Tensor, elev: Tensor, aux_w: Tensor,
+                          p: LioParams, n_valid: Optional[int] = None):
+    """:func:`odometry_window_packed` fed by range-image grids: the grid
+    frontend for each valid slot.  az/tcol (H,) and elev (S,) are shared by
+    the window (the ri2 layout) or per scan (W, .).
+
+    r: (W, S*H);  aux_w: (W, 2T+3, 8)"""
+    W = r.shape[0]
+    r3 = r.reshape(W, p.n_scan, p.horizon_scan)
+    valid = _valid_slots(aux_w, p, n_valid)
+    per_scan = az.dim() == 2
+
+    def grid(g, i):
+        return g[i] if per_scan else g
+
+    preps = [prepare_scan_grid(r3[i], grid(az, i), grid(tcol, i),
+                               grid(elev, i), aux_w[i], p)
+             if ok else None for i, ok in enumerate(valid)]
+    return _window_core(state, preps, valid, p)
+
+
+POINT_QUANT = (256.0, 256.0, 256.0, 16384.0, 1.0)  # per-column int16 scales:
+# xyz at 3.9 mm steps over +-128 m, time_rel at 61 us steps over +-2 s,
+# ring verbatim.
+RI_RANGE_SCALE = 250.0  # int16 range steps: 4 mm over [0, 131 m]
+
+
+def _f32(halves: Tensor) -> Tensor:
+    """float32 values that ride as pairs of int16 halves (the packer's
+    ``float32.view(int16)``), bit for bit: (..., 2n) int16 -> (..., n)."""
+    return halves.contiguous().view(torch.float32)
+
+
+def odometry_window_flat(state: LioState, flat_w: Tensor, p: LioParams,
+                         n_valid: Optional[int] = None):
+    """:func:`odometry_window_packed` fed by one float32 buffer
+    (W, max_points*5 + (2T+3)*8): the window's points and aux in one
+    upload."""
+    W = flat_w.shape[0]
+    n5 = p.max_points * 5
+    T = p.imu_window
+    pts_w = flat_w[:, :n5].reshape(W, p.max_points, 5)
+    aux_w = flat_w[:, n5:n5 + (2 * T + 3) * 8].reshape(W, 2 * T + 3, 8)
+    return odometry_window_packed(state, pts_w, aux_w, p, n_valid)
+
+
+def odometry_window_flat_q16(state: LioState, flat_w: Tensor, p: LioParams,
+                             n_valid: Optional[int] = None):
+    """:func:`odometry_window_flat` fed by one int16 buffer: points
+    quantized per POINT_QUANT, the aux rows as raw float32 bit patterns in
+    int16 halves (no precision loss).
+
+    flat_w: (W, max_points*5 + (2T+3)*8*2) int16"""
+    W = flat_w.shape[0]
+    n5 = p.max_points * 5
+    T = p.imu_window
+    a8 = (2 * T + 3) * 8
+    scales = torch.tensor(POINT_QUANT, dtype=torch.float32,
+                          device=flat_w.device)
+    pts_w = (flat_w[:, :n5].reshape(W, p.max_points, 5).to(torch.float32)
+             / scales)
+    aux_w = _f32(flat_w[:, n5:n5 + 2 * a8]).reshape(W, 2 * T + 3, 8)
+    return odometry_window_packed(state, pts_w, aux_w, p, n_valid)
+
+
+def odometry_window_flat_ri(state: LioState, flat_w: Tensor, p: LioParams,
+                            n_valid: Optional[int] = None):
+    """Range-image upload: per-pixel ranges (int16 at RI_RANGE_SCALE; an
+    invalid pixel carries 0 and fails the min-range gate) plus each scan's
+    azimuth / column time / elevation grids, fed to the grid frontend.
+
+    flat_w: (W, S*H + 2H + 2H + 2S + (2T+3)*8*2) int16 —
+            [ranges, az, col_time, elev, aux (each f32 block as halves)]"""
+    W = flat_w.shape[0]
+    S, H = p.n_scan, p.horizon_scan
+    n_pix = S * H
+    T = p.imu_window
+    r = flat_w[:, :n_pix].to(torch.float32) / RI_RANGE_SCALE
+    off = n_pix
+    blocks = []
+    for width in (H, H, S, (2 * T + 3) * 8):
+        blocks.append(_f32(flat_w[:, off:off + 2 * width]))
+        off += 2 * width
+    az, tcol, elev, aux = blocks
+    return odometry_window_grids(state, r, az, tcol, elev,
+                                 aux.reshape(W, 2 * T + 3, 8), p, n_valid)
+
+
+def _ri_points(r: Tensor, az: Tensor, tcol: Tensor, elev: Tensor,
+               p: LioParams) -> Tensor:
+    """The packed (W, max_points, 5) point rows of per-pixel ranges
+    (W, S*H), per-column azimuth / time (W, H) and per-ring elevation
+    (W, S): ``x = r (cos e cos a, cos e sin a, sin e)``; zero rows pad to
+    max_points (range 0: culled by the min-range gate)."""
+    W = r.shape[0]
+    S, H = p.n_scan, p.horizon_scan
+    n_pix = S * H
+    ce, se_ = torch.cos(elev), torch.sin(elev)                  # (W, S)
+    ca, sa = torch.cos(az), torch.sin(az)                       # (W, H)
+    ri = r.reshape(W, S, H)
+    x = ri * (ce[:, :, None] * ca[:, None, :])
+    y = ri * (ce[:, :, None] * sa[:, None, :])
+    z = ri * se_[:, :, None]
+    t = tcol[:, None, :].expand(W, S, H)
+    ring = torch.arange(S, dtype=torch.float32,
+                        device=r.device)[None, :, None].expand(W, S, H)
+    pts_w = torch.stack([x, y, z, t, ring], dim=-1).reshape(W, n_pix, 5)
+    pad = p.max_points - n_pix
+    if pad > 0:
+        pts_w = torch.cat([pts_w, pts_w.new_zeros((W, pad, 5))], dim=1)
+    return pts_w
+
+
+def ri_flat_width(p: LioParams) -> int:
+    """int16 row width of the range-image window buffer (see
+    :func:`odometry_window_flat_ri`)."""
+    S, H, T = p.n_scan, p.horizon_scan, p.imu_window
+    return S * H + 2 * H + 2 * H + 2 * S + (2 * T + 3) * 8 * 2
+
+
+def ri2_flat_len(p: LioParams, window: int) -> int:
+    """int16 length of the grid-hoisted range-image window buffer (see
+    :func:`odometry_window_flat_ri2`)."""
+    S, H, T = p.n_scan, p.horizon_scan, p.imu_window
+    return window * (S * H + (2 * T + 3) * 8 * 2) + 2 * H + 2 * H + 2 * S
+
+
+def odometry_window_flat_ri2(state: LioState, flat_w: Tensor, p: LioParams,
+                             n_valid: Optional[int] = None):
+    """:func:`odometry_window_flat_ri` with the azimuth / column time /
+    elevation grids once a window: a fixed firing pattern makes them equal
+    across the window's scans (the packer checks that on the host and
+    falls back to the per-scan layout otherwise).
+
+    flat_w: 1-D int16 —
+        [W*S*H ranges, W*(2T+3)*8*2 aux, 2H az, 2H col_time, 2S elev]"""
+    S, H = p.n_scan, p.horizon_scan
+    T = p.imu_window
+    n_pix = S * H
+    a8 = (2 * T + 3) * 8
+    W = (flat_w.shape[0] - 2 * (2 * H + S)) // (n_pix + 2 * a8)
+    r = flat_w[:W * n_pix].reshape(W, n_pix).to(torch.float32) / RI_RANGE_SCALE
+    off = W * n_pix
+    aux_w = _f32(flat_w[off:off + W * 2 * a8].reshape(W, 2 * a8)).reshape(
+        W, 2 * T + 3, 8)
+    off += W * 2 * a8
+    blocks = []
+    for width in (H, H, S):
+        blocks.append(_f32(flat_w[off:off + 2 * width]))
+        off += 2 * width
+    az, tcol, elev = blocks
+    return odometry_window_grids(state, r, az, tcol, elev, aux_w, p, n_valid)
+
+
+def select_window_fn(p: LioParams, flat_w: Tensor):
+    """The window decoder matching a packed buffer's layout: 1-D is the
+    hoisted range image, a row of ``ri_flat_width`` the per-scan one, other
+    int16 rows quantized points, float32 rows the plain layout."""
+    if flat_w.dim() == 1:
+        return odometry_window_flat_ri2
+    if p.quantized_upload and flat_w.shape[1] == ri_flat_width(p):
+        return odometry_window_flat_ri
+    if p.quantized_upload:
+        return odometry_window_flat_q16
+    return odometry_window_flat
 
 
 # ---------------------------------------------------------------------------
@@ -372,10 +614,10 @@ def _evict_oldest_keyframe(state: LioState, p: LioParams) -> LioState:
         ck, sk = _moment_group_bits(p)
         cmerged, _ = voxelmap.merge_moments(
             lm.corner_mom, voxelmap.scale_moments(cmom, -1.0),
-            p.map_corner_cap, group_bits=ck or 0)
+            p.map_corner_cap, group_bits=ck or 0, return_stats=True)
         smerged, _ = voxelmap.merge_moments(
             lm.surf_mom, voxelmap.scale_moments(smom, -1.0),
-            p.map_surf_cap, group_bits=sk or 0)
+            p.map_surf_cap, group_bits=sk or 0, return_stats=True)
         state = state._replace(local_map=lm._replace(corner_mom=cmerged,
                                                      surf_mom=smerged))
 
@@ -570,11 +812,11 @@ def _insert_keyframe(state: LioState, pose6: Tensor, scan_time: Tensor,
         cmerged, c_drop = voxelmap.merge_moments(
             lm.corner_mom, cmom, p.map_corner_cap, trim_center=pos,
             trim_radius=trim_r, leaf=p.mapping_corner_leaf_size,
-            origin=lm.anchor, group_bits=ck or 0)
+            origin=lm.anchor, group_bits=ck or 0, return_stats=True)
         smerged, s_drop = voxelmap.merge_moments(
             lm.surf_mom, smom, p.map_surf_cap, trim_center=pos,
             trim_radius=trim_r, leaf=p.mapping_surf_leaf_size,
-            origin=lm.anchor, group_bits=sk or 0)
+            origin=lm.anchor, group_bits=sk or 0, return_stats=True)
         local_map = _features_from_moments(
             cmerged, smerged, lm.anchor, p,
             mom_dropped=lm.mom_dropped + torch.stack([c_drop, s_drop]))
@@ -622,7 +864,23 @@ class PreparedScan(NamedTuple):
 def prepare_scan(inp: StepInput, p: LioParams) -> PreparedScan:
     """The state-independent part: frontend, mapping-leaf downsample
     (``downsampleCurrentScan`` :955-967), zero-bias IMU preintegration."""
-    front = run_frontend(inp.scan, p)
+    return _prepare_tail(run_frontend(inp.scan, p), inp, p)
+
+
+def prepare_scan_grid(r_grid: Tensor, az: Tensor, tcol: Tensor, elev: Tensor,
+                      aux: Tensor, p: LioParams) -> PreparedScan:
+    """:func:`prepare_scan` for a scan shipped as a range image: the grid
+    frontend (frontend.run_frontend_grid) replaces reconstruct-then-project.
+    aux carries everything else (the layout of unpack_step_input)."""
+    inp = unpack_step_input(aux.new_zeros((0, 5)), aux, p)
+    sc = inp.scan
+    front = run_frontend_grid(r_grid, az, tcol, elev, sc.scan_start,
+                              sc.imu_t, sc.imu_gyro, sc.imu_acc, sc.imu_mask,
+                              sc.imu_available, p)
+    return _prepare_tail(front, inp, p)
+
+
+def _prepare_tail(front, inp: StepInput, p: LioParams) -> PreparedScan:
     corner_ds = voxel.voxel_downsample(front.corner, p.mapping_corner_leaf_size,
                                        capacity=p.scan_corner_cap,
                                        uniform_overflow=False)

@@ -2,11 +2,11 @@
 ``msst_tpu.models.liosam.params`` (a test holds the two equal).
 
 Mirrors the reference's ``config/params.yaml`` (``include/utility.h:63-250``).
-Some fields only steer paths of msst_tpu that the port does not take
-(windowed uploads, Pallas routing); they stay so that one parameter object
-describes both packages.  The one path the port does not take yet, windowed
-dispatch (``LioSam(window > 1)``), raises ``NotImplementedError`` where it
-is selected.
+A few fields only steer paths of msst_tpu that the port does not take
+(Pallas routing); they stay so that one parameter object describes both
+packages.  ``quantized_upload`` picks the window uploads of
+``LioSam.process_window`` as it does in msst_tpu: int16 points (or the
+range-image grids) by default, float32 rows without it.
 """
 
 from __future__ import annotations
@@ -44,7 +44,10 @@ class LioParams:
     # reference, whose findPosition is stubbed, imageProjection.cpp:473-487)
     deskew_translation: bool = True
 
-    # int16 window uploads of msst_tpu's windowed dispatch; not read here
+    # int16-quantized window uploads (windowed dispatch only): xyz at 3.9 mm
+    # steps over +-128 m, per-point time at 61 us steps over +-2 s, the aux
+    # rows bit-exact; with the range-image grids, ranges at 4 mm steps up
+    # to 131 m.  False ships the float32 rows.
     quantized_upload: bool = True
 
     # --- LOAM thresholds (params.yaml:60-64)

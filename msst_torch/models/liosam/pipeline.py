@@ -1,12 +1,21 @@
 """Host-side orchestration of the LIO-SAM pipeline (port of
-``msst_tpu.models.liosam.pipeline.LioSam`` at window=1): pad raw sensor
-arrays to the static shapes, thread the state through the odometry step on
-the chosen device, run the loop-closure program at its own lower rate, and
-collect the trajectory; export the map (``save_map``) and the IMU-rate pose
+``msst_tpu.models.liosam.pipeline.LioSam``): pad raw sensor arrays to the
+static shapes, thread the state through the odometry step on the chosen
+device, run the loop-closure program at its own lower rate, and collect the
+trajectory; export the map (``save_map``) and the IMU-rate pose
 (``imu_rate_pose``).
 
-Not ported yet, and refused where selected: windowed dispatch (window > 1,
-ROADMAP item L4)."""
+``process_scan`` feeds one scan a step.  ``process_window`` feeds up to
+``window`` scans from one host->device copy in one of msst_tpu's four
+upload layouts (float32 rows; int16-quantized rows under the default
+``quantized_upload``; the int16 range-image grids, per scan or once a
+window, for sources that attach ``ranges``/``azimuth``/``col_time``/
+``elev``), decoded on the device and stepped slot by slot
+(``mapping.select_window_fn``); ``process_window_async`` packs on the
+caller's thread and dispatches on one worker thread, one window in flight.
+On the card the step launches the CUDA kernels in either form; on the CPU
+(``device="cpu"``, as the tests run) their plain twins.
+"""
 
 from __future__ import annotations
 
@@ -23,14 +32,19 @@ from ...ops import imu as imu_ops
 from ...ops import se3
 from ...ops.pointcloud import Cloud
 from ...ops.voxel import voxel_downsample
+from ...utils import native
 from ...utils.io_pcd import write_pcd
 from .loop import loop_closure_step
-from .mapping import odometry_step_packed
+from .mapping import (POINT_QUANT, RI_RANGE_SCALE, odometry_step_packed,
+                      ri2_flat_len, ri_flat_width, select_window_fn)
 from .params import LioParams
 from .state import LioState, init_state
 
 _SENSOR_KEYS = ("imu_t", "imu_gyro", "imu_acc", "imu_rpy", "gps_xyz",
                 "gps_sigma")
+# the range-image upload hint: a scan carrying all four ships as its grids
+_GRID_KEYS = ("ranges", "azimuth", "col_time", "elev")
+_Q16_SCALES = np.asarray(POINT_QUANT, np.float32)
 
 
 @dataclasses.dataclass
@@ -73,10 +87,8 @@ class LioSam:
             raise RuntimeError(
                 f"LioSam runs on device={str(device)!r} and no CUDA device is "
                 "present; pass device='cpu' to run on the CPU")
-        if window != 1:
-            raise NotImplementedError(
-                f"window={window}: windowed dispatch is not ported yet "
-                "(ROADMAP item L4); use window=1")
+        # scans a process_window call takes, from one upload
+        self.window = max(1, window)
         # loop closure: one attempt every `_loop_every` scans (assuming
         # ~10 Hz scans), after the step of the scan that reaches it
         self.loop_enabled = self.p.loop_closure_enabled
@@ -87,7 +99,9 @@ class LioSam:
         # pose.  Buffer the first `boot_scans` scans, read back the
         # converged velocity, reset, and re-feed with the hint
         # (StepInput.init_vel_*).  msst_tpu boots on 8 scans at window=1 and
-        # on its whole first window otherwise (64 scans in bench.py).
+        # on its whole first window otherwise (64 scans in bench.py), and
+        # so does this class: the boot ends with the window that reaches
+        # `boot_scans`.
         self._init_vel = None
         self._boot_scans: Optional[list] = [] if self.p.dynamic_init else None
         self._boot_n = boot_scans
@@ -101,9 +115,12 @@ class LioSam:
         # poses and map telemetry are copied to the host in batches of this
         # many scans (one copy each, not one per scan)
         self._readback_interval = max(
-            1, max(8, 4 * window) if readback_interval is None
+            1, max(8, 4 * self.window) if readback_interval is None
             else readback_interval)
-        self._pending: list = []  # (time, pose_matrix, occupancy, dropped)
+        # (time, pose_matrix, occupancy, dropped) of a scan, or ([times],
+        # (W, 4, 4) pose matrices, last slot's occupancy and dropped) of a
+        # window
+        self._pending: list = []
         self._pending_loops: list = []  # device `found` flags, read lazily
         # a closed loop rewrote keyframe history: the recorded trajectory is
         # stale until the next resync, which the consumers (trajectory,
@@ -113,9 +130,11 @@ class LioSam:
         # and the cumulative overflow-dropped cell count
         self.map_health = {"max_occupancy": 0.0, "dropped_cells": 0}
         self._overflow_warned = False
-        # host seconds per stage (pack, flush_get, resync, loop_dispatch),
-        # summed over the run
+        # host seconds per stage (pack, dispatch, flush_get, resync,
+        # loop_dispatch), summed over the run
         self.timings: dict = {}
+        self._executor = None          # process_window_async's worker
+        self._dispatch_future = None
 
     def _acct(self, key, t0):
         self.timings[key] = self.timings.get(key, 0.0) + (
@@ -194,6 +213,121 @@ class LioSam:
             aux[2 * T + 2, 3] = 1.0
         return aux
 
+    def _host_zeros(self, shape, dtype) -> torch.Tensor:
+        """A zeroed host buffer for one window's upload: pinned when the
+        step runs on the card, so the copy is asynchronous.  Each window
+        gets its own; the caching host allocator hands a block out again
+        only once the copy that read it has finished."""
+        return torch.zeros(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _pack_points_q16(self, xyz, ring, time_rel, out) -> int:
+        """One-pass quantized point pack into an int16 row view (the native
+        ``pack_scan_q16``; raises where the library does not build)."""
+        return native.pack_scan_q16(xyz, time_rel, ring, self.p.max_points,
+                                    _Q16_SCALES, out[:self.p.max_points * 5])
+
+    def _pack_window(self, scans):
+        """Pack up to `window` scans into one host buffer, in the layout
+        msst_tpu's packer picks for them, byte for byte: the range-image
+        grids where every scan carries them (and max_points holds a grid),
+        else int16 rows under ``quantized_upload``, else float32 rows.
+        Returns (buffer, scan times, scan count before the window)."""
+        W = self.window
+        if not 1 <= len(scans) <= W:
+            raise ValueError(f"expected 1..{W} scans, got {len(scans)}")
+        p = self.p
+        n5 = p.max_points * 5
+        a8 = (2 * p.imu_window + 3) * 8
+        quant = p.quantized_upload
+        if quant and p.max_points >= p.n_scan * p.horizon_scan and all(
+                all(k in s for k in _GRID_KEYS) for s in scans):
+            return self._pack_window_ri(scans)
+        if quant:
+            buf = self._host_zeros((W, n5 + 2 * a8), torch.int16)
+        else:
+            buf = self._host_zeros((W, n5 + a8), torch.float32)
+        flat_w = buf.numpy()
+        times = []
+        prev_count = self._scan_count
+        for i, s in enumerate(scans):
+            kw = {k: v for k, v in s.items() if k in _SENSOR_KEYS}
+            if quant:
+                n_i = self._pack_points_q16(s["xyz"], s["ring"],
+                                            s["time_rel"], flat_w[i, :n5])
+                aux_i = self._make_aux_np(n_i, s["time_rel"],
+                                          s["scan_start"], **kw)
+                flat_w[i, n5:] = aux_i.reshape(-1).view(np.int16)
+            else:
+                pts_i, aux_i = self._make_input_np(
+                    s["xyz"], s["ring"], s["time_rel"], s["scan_start"], **kw)
+                flat_w[i, :n5] = pts_i.reshape(-1)
+                flat_w[i, n5:] = aux_i.reshape(-1)
+            self._last_scan_time = float(s["scan_start"])
+            self._scan_count += 1
+            times.append(float(s["scan_start"]))
+        return buf, times, prev_count
+
+    def _pack_window_ri(self, scans):
+        """Range-image window pack (layouts in mapping.odometry_window_flat_ri
+        and _ri2).  Where every scan of the window carries the same azimuth,
+        column-time and elevation grids (a fixed firing pattern), the grids
+        ship once a window in a 1-D buffer; otherwise each scan carries its
+        own."""
+        p = self.p
+        W = self.window
+        S, H = p.n_scan, p.horizon_scan
+        n_pix = S * H
+        a16 = (2 * p.imu_window + 3) * 8 * 2
+
+        grids = [tuple(np.asarray(s[k], np.float32).reshape(-1)
+                       for k in ("azimuth", "col_time", "elev"))
+                 for s in scans]
+        hoist = all(all(np.array_equal(a, b) for a, b in zip(g, grids[0]))
+                    for g in grids[1:])
+
+        def put_f32(dst, o, a, width):
+            f = np.zeros(width, np.float32)
+            a = np.asarray(a, np.float32).reshape(-1)[:width]
+            f[:len(a)] = a
+            dst[o:o + 2 * width] = f.view(np.int16)
+            return o + 2 * width
+
+        if hoist:
+            buf = self._host_zeros(ri2_flat_len(p, W), torch.int16)
+            flat_w = buf.numpy()
+            o = len(flat_w) - 2 * (2 * H + S)
+            o = put_f32(flat_w, o, grids[0][0], H)
+            o = put_f32(flat_w, o, grids[0][1], H)
+            put_f32(flat_w, o, grids[0][2], S)
+        else:
+            buf = self._host_zeros((W, ri_flat_width(p)), torch.int16)
+            flat_w = buf.numpy()
+        times = []
+        prev_count = self._scan_count
+        for i, s in enumerate(scans):
+            kw = {k: v for k, v in s.items() if k in _SENSOR_KEYS}
+            r = np.asarray(s["ranges"], np.float32).reshape(-1)[:n_pix]
+            rq = np.clip(np.rint(r * RI_RANGE_SCALE), 0, 32767).astype(
+                np.int16)
+            aux_i = self._make_aux_np(n_pix, s["col_time"], s["scan_start"],
+                                      **kw)
+            if hoist:
+                flat_w[i * n_pix:i * n_pix + len(rq)] = rq
+                ao = W * n_pix + i * a16
+                flat_w[ao:ao + a16] = aux_i.reshape(-1).view(np.int16)
+            else:
+                flat_w[i, :len(rq)] = rq
+                o = n_pix
+                o = put_f32(flat_w[i], o, s["azimuth"], H)
+                o = put_f32(flat_w[i], o, s["col_time"], H)
+                o = put_f32(flat_w[i], o, s["elev"], S)
+                flat_w[i, o:] = aux_i.reshape(-1).view(np.int16)
+            self._last_scan_time = float(s["scan_start"])
+            self._scan_count += 1
+            times.append(float(s["scan_start"]))
+        return buf, times, prev_count
+
     # -- public API ---------------------------------------------------------
 
     def process_scan(self, xyz, ring, time_rel, scan_start, **sensors):
@@ -201,6 +335,7 @@ class LioSam:
         gps_sigma keyword arrays; other keys are ignored); returns the
         StepOutput."""
         sensors = {k: v for k, v in sensors.items() if k in _SENSOR_KEYS}
+        self._join_dispatch()  # never race an in-flight async window
         t0 = time.perf_counter()
         points, aux = self._make_input_np(xyz, ring, time_rel, scan_start,
                                           **sensors)
@@ -228,6 +363,86 @@ class LioSam:
             self._try_loop_closure()
         return out
 
+    def process_window(self, scans):
+        """Feed up to ``window`` scans from one upload.  ``scans`` is a list
+        of dicts with keys ``xyz, ring, time_rel, scan_start``, the optional
+        sensor keywords of ``process_scan``, and optionally the grids
+        ``ranges, azimuth, col_time, elev``.  The same results as
+        ``process_scan`` per element under the same upload (the window's
+        step is the per-scan step); a partial window is padded with slots
+        that pass the state through.  Returns the StepOutput stacked on the
+        window axis (padded slots echo the state)."""
+        self._join_dispatch()  # never race an in-flight async window
+        t0 = time.perf_counter()
+        packed = self._pack_window(scans)
+        self._acct("pack", t0)
+        outs = self._dispatch_window(*packed)
+        if self._boot_scans is not None:
+            self._boot_scans.extend(scans)
+            if self._scan_count >= self._boot_n:
+                res = self._bootstrap_refeed()
+                return res if res is not None else outs
+        return outs
+
+    def process_window_async(self, scans):
+        """:meth:`process_window` pipelined: the window is packed here, on
+        the caller's thread, and stepped on one worker thread, so the next
+        window's packing overlaps this one's step.  Returns a
+        ``concurrent.futures.Future[StepOutput]``; windows resolve in feed
+        order (one dispatch in flight: the state is a chain).  The worker
+        launches on the caller's current CUDA stream.  ``flush()``,
+        ``trajectory``, ``save_map``, ``process_scan`` and
+        ``process_window`` join it first.  During the dynamic-init boot the
+        window runs synchronously (the bootstrap reads the state back)."""
+        import concurrent.futures as cf
+
+        if self._boot_scans is not None:
+            fut = cf.Future()
+            fut.set_result(self.process_window(scans))
+            return fut
+        if self._executor is None:
+            self._executor = cf.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="lio-dispatch")
+        t0 = time.perf_counter()
+        packed = self._pack_window(scans)
+        self._acct("pack", t0)
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        fut = self._executor.submit(self._dispatch_on, stream, packed)
+        self._dispatch_future = fut
+        return fut
+
+    def _dispatch_on(self, stream, packed):
+        if stream is None:
+            return self._dispatch_window(*packed)
+        with torch.cuda.stream(stream):
+            return self._dispatch_window(*packed)
+
+    def _join_dispatch(self):
+        if self._dispatch_future is not None:
+            f, self._dispatch_future = self._dispatch_future, None
+            f.result()
+
+    def _dispatch_window(self, buf, times, prev_count):
+        """One window: the upload (one copy), the step, the pending pose
+        entry, a flush every `readback_interval` scans, and a loop attempt
+        where the window crossed a multiple of `loop_every` scans."""
+        window_fn = select_window_fn(self.p, buf)
+        t0 = time.perf_counter()
+        flat = buf.to(self.device, non_blocking=True)
+        self.state, outs = window_fn(self.state, flat, self.p,
+                                     n_valid=len(times))
+        self._acct("dispatch", t0)
+        self._pending.append((times, outs.pose_matrix,
+                              outs.map_occupancy[-1], outs.map_dropped[-1]))
+        if len(self._pending) * self.window >= self._readback_interval:
+            self._flush_pending()
+        count = prev_count + len(times)
+        if (self.loop_enabled and count // self._loop_every
+                > prev_count // self._loop_every):
+            self._try_loop_closure(t_cur=times[-1])
+        return outs
+
     def _bootstrap_refeed(self):
         """Dynamic init second pass: reset the estimator and replay the
         buffered boot scans with the converged velocity as the first-scan
@@ -253,25 +468,30 @@ class LioSam:
         self._scan_count = 0
         self._last_scan_time = None
         out = None
-        for s in scans:
-            kw = {k: val for k, val in s.items()
-                  if k not in ("xyz", "ring", "time_rel", "scan_start")}
-            out = self.process_scan(s["xyz"], s["ring"], s["time_rel"],
-                                    s["scan_start"], **kw)
+        if self.window > 1:
+            for i in range(0, len(scans), self.window):
+                out = self.process_window(scans[i:i + self.window])
+        else:
+            for s in scans:
+                kw = {k: val for k, val in s.items()
+                      if k not in ("xyz", "ring", "time_rel", "scan_start")}
+                out = self.process_scan(s["xyz"], s["ring"], s["time_rel"],
+                                        s["scan_start"], **kw)
         return out
 
-    def _try_loop_closure(self):
+    def _try_loop_closure(self, t_cur=None):
         """One loop-closure attempt, unless the host pre-gate rules it out.
         Its `found` flag is read at the next flush, where a closed loop
-        marks the trajectory for a resync."""
-        if not self._loop_plausible():
+        marks the trajectory for a resync.  `t_cur`: the stamp of the last
+        scan stepped (default: the last packed)."""
+        if not self._loop_plausible(t_cur):
             return
         t0 = time.perf_counter()
         self.state, loop = loop_closure_step(self.state, self.p)
         self._acct("loop_dispatch", t0)
         self._pending_loops.append(loop.found)
 
-    def _loop_plausible(self) -> bool:
+    def _loop_plausible(self, t_cur=None) -> bool:
         """Host-side pre-gate: skip the attempt where the candidate search
         (``detectLoopClosureDistance`` :610-643) provably finds nothing.
 
@@ -283,7 +503,9 @@ class LioSam:
           of the latest known pose, none can on the device.  At worst a
           detection moves to the next attempt.  Unknown positions (nothing
           flushed yet) dispatch."""
-        p, t_cur = self.p, self._last_scan_time
+        p = self.p
+        if t_cur is None:
+            t_cur = self._last_scan_time
         if t_cur is None or self._epoch is None:
             return True
         if (t_cur - self._epoch) <= p.history_keyframe_search_time_diff:
@@ -314,11 +536,24 @@ class LioSam:
             self._acct("flush_get", t0)
             return
         pending, self._pending = self._pending, []
-        times = [t for t, *_ in pending]
-        mats = torch.stack([m for _, m, _, _ in pending]).cpu().numpy()
+        times, blocks = [], []
+        for t, m, _, _ in pending:
+            if isinstance(t, list):   # a window: its padded rows drop below
+                times.extend(t)
+                blocks.append(m)
+            else:
+                times.append(t)
+                blocks.append(m[None])
+        mats_all = torch.cat(blocks).cpu().numpy()
         occ = torch.stack([o for _, _, o, _ in pending]).cpu().numpy()
         drop = torch.stack([d for _, _, _, d in pending]).cpu().numpy()
         self._acct("flush_get", t0)
+        rows, off = [], 0
+        for (t, *_), m in zip(pending, blocks):
+            rows.append(mats_all[off:off + (len(t) if isinstance(t, list)
+                                            else 1)])
+            off += m.shape[0]
+        mats = np.concatenate(rows)
         self._update_map_health(occ, drop)
         if not np.isfinite(mats).all():
             warnings.warn("odometry diverged (non-finite pose); reinitializing")
@@ -385,6 +620,7 @@ class LioSam:
     def flush(self):
         """Drain pending device results into the host trajectory, and
         resync it after a closed loop."""
+        self._join_dispatch()
         self._flush_pending()
         if self._resync_needed:
             self._resync_trajectory()
@@ -434,6 +670,7 @@ class LioSam:
         the last scan: the smooth high-rate ``odometry/imu`` output (the
         reference's TransformFusion, ``imuPreintegration.cpp:23-154``).
         Returns (se3.Pose on the device, velocity as numpy (3,))."""
+        self._join_dispatch()  # read a settled filter state
         fs = self.state.filter
         T = self.p.imu_window
         t = np.asarray(imu_t, np.float64)[-T:]

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ...ops import graph as graph_ops
-from ...ops import knn, voxelmap
+from ...ops import knn, se3, voxelmap
 from . import imu_fusion
 from .params import LioParams
 
@@ -117,6 +117,10 @@ def _empty_local_map(p: LioParams, device) -> LocalMap:
         valid=torch.tensor(False, device=device),
         mom_dropped=zeros(2, dtype=torch.int32),
     )
+
+
+def kf_pose(kf: KeyframeStore, i) -> se3.Pose:
+    return se3.Pose.from_vec6(kf.pose6[i])
 
 
 def init_state(p: LioParams, device) -> LioState:

@@ -1,5 +1,5 @@
 // Native host runtime for msst_torch (the port's own copy of msst_tpu's
-// msst_native.cc, without its TPU upload packer).
+// msst_native.cc).
 //
 // C++ equivalents of the reference's C++ driver internals, exposed through a
 // plain C ABI for ctypes:
@@ -13,7 +13,10 @@
 //   * udp_open/udp_recv_batch — live UDP capture with poll() timeout
 //                        (InputSocket::getPacket, input.cc:131-190);
 //   * ring buffer      — lock-free SPSC packet queue for the capture thread
-//                        (replaces the ROS-queue decoupling).
+//                        (replaces the ROS-queue decoupling);
+//   * pack_scan_q16    — one-pass int16 quantization of a scan's points into
+//                        a window upload row (LioSam's q16 layout,
+//                        mapping.odometry_window_flat_q16).
 //
 // Built at its first use by msst_torch/utils/native.py (g++ -O3 -fPIC
 // -std=c++17 -shared) into msst_torch/build/libmsst_native-<hash>.so.
@@ -438,5 +441,29 @@ int ring_size(void* ring) {
 }
 
 void ring_destroy(void* ring) { delete static_cast<PacketRing*>(ring); }
+
+// Quantize n points (xyz, per-point time, ring) into max_points rows of 5
+// int16: clip(rint(v * scale), +-32767) per column, rows past n zeroed.
+void pack_scan_q16(const float* xyz, const float* time_rel,
+                   const int32_t* ring, int n, int max_points,
+                   const float* scales /* 5 */, int16_t* out) {
+  if (n > max_points) n = max_points;
+  const float sx = scales[0], sy = scales[1], sz = scales[2],
+              st = scales[3], sr = scales[4];
+  auto q = [](float v) -> int16_t {
+    v = v < -32767.f ? -32767.f : (v > 32767.f ? 32767.f : v);
+    return static_cast<int16_t>(lrintf(v));
+  };
+  for (int i = 0; i < n; ++i) {
+    int16_t* row = out + 5 * i;
+    row[0] = q(xyz[3 * i + 0] * sx);
+    row[1] = q(xyz[3 * i + 1] * sy);
+    row[2] = q(xyz[3 * i + 2] * sz);
+    row[3] = q(time_rel[i] * st);
+    row[4] = q(static_cast<float>(ring[i]) * sr);
+  }
+  if (n < max_points)
+    memset(out + 5 * n, 0, sizeof(int16_t) * 5 * (max_points - n));
+}
 
 }  // extern "C"

@@ -4,7 +4,8 @@
 * :func:`imu_rotation_timeline` — gyro integration over the scan window
   (``imuDeskewInfo`` :305-362)
 * :func:`deskew` — per-point rotation deskew to scan start
-  (``findRotation`` :446-471 + ``deskewPoint`` :489-519)
+  (``findRotation`` :446-471 + ``deskewPoint`` :489-519); :func:`deskew_grid`
+  the same for a range-image grid, one rotation per column
 * :func:`project` — N_SCAN x H range image, first point wins a pixel
   (``projectPointCloud`` :521-572)
 * :func:`extract_rings` — dense per-ring prefixes (``cloudExtraction`` :574-598)
@@ -78,6 +79,25 @@ def deskew(xyz: Tensor, point_time: Tensor, imu_times: Tensor,
     q_s = se3.quat_from_rpy(rot_start)
     q_bt = se3.quat_mul(se3.quat_conj(q_s), q_t)
     out = se3.quat_rotate(q_bt, xyz)
+    return torch.where(enabled, out, xyz)
+
+
+def deskew_grid(xyz: Tensor, col_time: Tensor, imu_times: Tensor,
+                imu_rots: Tensor, n_valid: Tensor, t_start: Tensor,
+                enabled: Tensor) -> Tensor:
+    """:func:`deskew` for a range-image grid (S, H, 3) whose firing time is
+    per column (col_time (H,), relative to t_start): the rotation is
+    interpolated once per column (H queries, not S*H) and broadcast over
+    the rings.  Same ``findRotation``/``deskewPoint`` semantics
+    (``imageProjection.cpp:446-519``) as the per-point path."""
+    rot_t = _interp_rotation(imu_times, imu_rots, n_valid,
+                             t_start + col_time)                 # (H, 3)
+    rot_s = _interp_rotation(imu_times, imu_rots, n_valid,
+                             torch.reshape(t_start, (1,)))       # (1, 3)
+    q_t = se3.quat_from_rpy(rot_t)
+    q_s = se3.quat_from_rpy(rot_s)
+    q_bt = se3.quat_mul(se3.quat_conj(q_s), q_t)                 # (H, 4)
+    out = se3.quat_rotate(q_bt, xyz)                             # (S, H, 3)
     return torch.where(enabled, out, xyz)
 
 

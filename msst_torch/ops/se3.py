@@ -240,6 +240,10 @@ class Pose(NamedTuple):
     def to_vec6(self) -> Tensor:
         return torch.cat([quat_to_rpy(self.q), self.t], dim=-1)
 
+    @staticmethod
+    def from_matrix(T: Tensor) -> "Pose":
+        return Pose(matrix_to_quat(T[..., :3, :3]), T[..., :3, 3])
+
     def to_matrix(self) -> Tensor:
         R = quat_to_matrix(self.q)
         top = torch.cat([R, self.t[..., :, None]], dim=-1)

@@ -338,14 +338,14 @@ def scale_moments(m: VoxelMoments, s) -> VoxelMoments:
     return m._replace(rsum=m.rsum * s, cnt=m.cnt * s)
 
 
-def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int, *,
+def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int,
+                  min_cnt: float = 0.5,
                   trim_center: Optional[Tensor] = None,
                   trim_radius: Optional[float] = None,
                   leaf: Optional[float] = None,
                   origin: Optional[Tensor] = None, group_bits: int = 0,
-                  min_cnt: float = 0.5, method: str = "sort",
-                  return_stats: bool = True):
-    """Merge two sorted moment tables -> (merged, dropped): equal keys sum;
+                  method: str = "sort", return_stats: bool = False):
+    """Merge two sorted moment tables: equal keys sum;
     cells below `min_cnt` die (an eviction's ``scale_moments(m, -1)``
     cancels counts exactly); with `trim_center`, cells farther than
     `trim_radius` from it die too (the reference's surrounding-keyframe
@@ -356,8 +356,8 @@ def merge_moments(a: VoxelMoments, b: VoxelMoments, capacity: int, *,
     method: how the merged order is formed, "sort" (one stable sort of
     both tables) or "rank" (each b key's rank in a by a binary search, a
     filling the free slots in order); both give the same table.
-    return_stats=False returns the merged table alone (msst_tpu's default;
-    the port's callers all read `dropped`, so it is the port's default)."""
+    return_stats=True also returns `dropped`; without it the merged table
+    comes alone.  The signature and defaults are msst_tpu's."""
     na, nb = a.key.shape[0], b.key.shape[0]
     n_tot = na + nb
     dev = a.key.device

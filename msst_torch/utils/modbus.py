@@ -1,6 +1,5 @@
-"""Modbus-TCP client and server (host-side wire adapters; the port's own
-copy of ``msst_tpu.utils.modbus``, numpy-free and socket-only, without the
-IMU polling driver, which the port does not run yet).
+"""Modbus-TCP client, server and IMU driver (host-side wire adapters; the
+port's own copy of ``msst_tpu.utils.modbus``, socket-only).
 
 * :class:`ModbusTcpClient`: the IMU driver's transport
   (``imu_ws/src/imu_modbus_driver/src/imu_modbus_node.cpp``): polls input
@@ -10,10 +9,13 @@ IMU polling driver, which the port does not run yet).
   (``lidar_target02/src/target_detector.cpp:605-1000``): a nonblocking
   select-loop server exposing a register bank, handling function codes 3/4
   (read holding/input registers); ``msst-torch track --serve-modbus``.
+* :class:`ImuModbusDriver`: register map + covariances of the reference IMU
+  node (:53-59, registers 30..86) producing IMU sample dicts.
 """
 
 from __future__ import annotations
 
+import math
 import select
 import socket
 import struct
@@ -176,3 +178,51 @@ class ModbusTcpServer:
             except OSError:
                 pass
         return buf
+
+
+class ImuModbusDriver:
+    """The IMU polling node: registers 30..86 at 192.168.188.105:502 decode to
+    rpy / gyro / acc floats; covariances hardcoded from a prior Allan run
+    (:53-59)."""
+
+    REG_START = 30
+    REG_COUNT = 36  # 18 floats
+
+    ORIENTATION_COV = [1e-4, 0, 0, 0, 1e-4, 0, 0, 0, 1e-4]
+    GYRO_COV = [2.5e-5, 0, 0, 0, 2.5e-5, 0, 0, 0, 2.5e-5]
+    ACC_COV = [1e-4, 0, 0, 0, 1e-4, 0, 0, 0, 1e-4]
+
+    def __init__(self, host: str = "192.168.188.105", port: int = 502,
+                 extrinsics=None):
+        """extrinsics: optional :class:`~msst_torch.utils.imu_adapter.
+        ImuExtrinsics` applied to every polled sample (the reference's
+        ``imuConverter``, ``utility.h:252-282``)."""
+        self.client = ModbusTcpClient(host, port)
+        self.extrinsics = extrinsics
+
+    def poll(self) -> Optional[dict]:
+        if not self.client.ensure_connected():
+            return None
+        try:
+            regs = self.client.read_registers(self.REG_START, self.REG_COUNT)
+        except (OSError, IOError):
+            self.client.close()
+            return None
+        floats = [registers_to_float(regs[2 * i], regs[2 * i + 1])
+                  for i in range(len(regs) // 2)]
+        # layout: rpy[3], gyro[3], acc[3] (remaining floats reserved)
+        if not all(math.isfinite(f) for f in floats[:9]):
+            return None  # validity gating (:121-133)
+        rpy, gyro, acc = floats[0:3], floats[3:6], floats[6:9]
+        if self.extrinsics is not None and not self.extrinsics.is_identity():
+            from .imu_adapter import convert_imu
+            gyro, acc, rpy = convert_imu(self.extrinsics, gyro, acc, rpy=rpy)
+            rpy, gyro, acc = list(rpy), list(gyro), list(acc)
+        return {
+            "rpy": rpy,
+            "gyro": gyro,
+            "acc": acc,
+            "orientation_covariance": self.ORIENTATION_COV,
+            "angular_velocity_covariance": self.GYRO_COV,
+            "linear_acceleration_covariance": self.ACC_COV,
+        }

@@ -1,6 +1,7 @@
 """The port's host library, ``msst_torch/native/msst_native.cc``: the batch
-packet decoder, the pcap reader, live UDP capture and a packet ring buffer,
-behind a plain C interface.
+packet decoder, the pcap reader, live UDP capture, a packet ring buffer and
+the int16 point packer of LioSam's window uploads, behind a plain C
+interface.
 
 At its first use in a process the source is compiled by the host C++
 compiler (``$CXX``, else ``g++``) with ``-O3 -fPIC -std=c++17 -shared`` into
@@ -44,6 +45,8 @@ _SIGNATURES = {
                                   _C.c_int]),
     "ring_size": (_C.c_int, [_C.c_void_p]),
     "ring_destroy": (None, [_C.c_void_p]),
+    "pack_scan_q16": (None, 3 * [_C.c_void_p] + 2 * [_C.c_int]
+                      + 2 * [_C.c_void_p]),
 }
 
 _lib = None
@@ -112,3 +115,23 @@ def read_pcap(path: str, max_packets: int) -> tuple[np.ndarray, np.ndarray]:
     if n < 0:
         raise OSError(f"pcap read failed ({n}): {path}")
     return out[:n], stamps[:n]
+
+
+def pack_scan_q16(xyz, time_rel, ring, max_points: int, scales: np.ndarray,
+                  out: np.ndarray) -> int:
+    """Quantize a scan's first min(len(xyz), max_points) points into `out`,
+    a contiguous int16 array of max_points*5 (rows [x, y, z, time_rel,
+    ring] times `scales`, rounded half to even, clipped to +-32767; rows
+    past the scan zeroed).  Returns the number of points packed."""
+    n = min(len(xyz), max_points)
+    xyz32 = np.ascontiguousarray(np.asarray(xyz, np.float32)[:n])
+    t32 = np.ascontiguousarray(np.asarray(time_rel, np.float32)[:n])
+    r32 = np.ascontiguousarray(np.asarray(ring, np.int32)[:n])
+    scales = np.ascontiguousarray(scales, np.float32)
+    if out.dtype != np.int16 or out.size != max_points * 5 or not (
+            out.flags.c_contiguous):
+        raise ValueError("out must be a contiguous int16 array of "
+                         f"{max_points * 5}")
+    load().pack_scan_q16(xyz32.ctypes.data, t32.ctypes.data, r32.ctypes.data,
+                         n, max_points, scales.ctypes.data, out.ctypes.data)
+    return n

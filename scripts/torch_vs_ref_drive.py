@@ -4,7 +4,7 @@ at a reduced ring width, with the same parameter overrides, and print each
 package's accuracy against ground truth under bench.py's definitions.
 
     python3 scripts/torch_vs_ref_drive.py [--horizon 900] [--scans 256]
-        [--boot 64] [--set key=value ...] [--steps K]
+        [--boot 64] [--set key=value ...] [--steps K] [--window W]
         [--packages msst_tpu,msst_torch] [--perturb SEED] [--reference-sums]
 
 The drive is chip_smoke.py's bench drive (circle r = 10 m at 2 m/s, seed 7,
@@ -18,6 +18,12 @@ before the step and the packed scan) also goes through the port's step,
 and a last JSON line gives the largest pose gap of those single steps and
 how many keyframe decisions and Gauss-Newton iteration counts differ: the
 packages' agreement without the drive's own amplification.
+
+``--window W`` (W > 1) feeds each package's ``process_window`` with
+windows of W scans as bench.py does (the range-image grids attached, so
+under the default ``quantized_upload`` the hoisted range-image upload);
+msst_tpu's window program runs through a ``_window_core`` that binds
+``inp`` the same way.  ``--steps`` compares single steps only at W = 1.
 
 ``--kitti DIR`` drives each package's ``lio-kitti`` command instead, in
 this process, at its own HDL-64 profile (64 x 1800, 150,000 points, the
@@ -139,7 +145,25 @@ def _reference_binding(jax, steps=0):
                                                       out[1])))
         return out
 
+    def window_core(state, preps, valid_w, p):
+        def body(st, pv):
+            ps, valid = pv
+
+            def core(s):
+                jmap.inp = ps
+                try:
+                    return jmap.odometry_core(s, ps, p)
+                finally:
+                    del jmap.inp
+
+            return jax.lax.cond(
+                valid, core, lambda s: (s, jmap._passthrough_output(s, p)),
+                st)
+
+        return jax.lax.scan(body, state, (preps, valid_w))
+
     jpipe.odometry_step_packed = recording_step
+    jmap._window_core = window_core
     return recorded
 
 
@@ -290,6 +314,7 @@ def main(argv=None) -> int:
     ap.add_argument("--attitude", choices=("reader", "stamp"),
                     default="reader")
     ap.add_argument("--threads", type=int, default=0)
+    ap.add_argument("--window", type=int, default=1)
     args = ap.parse_args(argv)
     if args.kitti:
         return _kitti(args)
@@ -322,16 +347,25 @@ def main(argv=None) -> int:
         _use_reference_sums()
 
     recorded = _reference_binding(jax, args.steps)
+    W = args.window
+    import chip_smoke
+
+    windows = chip_smoke._windows_of(data, W)
     for name in args.packages.split(","):
         if name == "msst_tpu":
-            lio = jpipe.LioSam(JParams(**over))
+            lio = jpipe.LioSam(JParams(**over), window=W)
             lio._boot_n = args.boot
         else:
-            lio = TLioSam(TParams(**over), device="cpu", boot_scans=args.boot)
+            lio = TLioSam(TParams(**over), device="cpu", window=W,
+                          boot_scans=args.boot)
         t0 = time.perf_counter()
-        for s in data:
-            _feed(lio, s)
-        res = {"package": name, "overrides": over,
+        if W > 1:
+            for batch in windows:
+                lio.process_window(batch)
+        else:
+            for s in data:
+                _feed(lio, s)
+        res = {"package": name, "overrides": over, "window": W,
                "perturb": args.perturb, "reference_sums": args.reference_sums,
                "keyframes": int(lio.state.kf.count),
                "seconds": time.perf_counter() - t0}

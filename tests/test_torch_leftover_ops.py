@@ -6,14 +6,18 @@ grid ``registration.icp_point2point`` (its correspondences from
 ``knn.query`` at k = 1, the k-NN kernel's twin here), ``voxelmap.
 plane_residuals`` / ``line_residuals``, and the options of ``voxelmap.
 build`` (the absolute grid, ``plane_spread_min_count`` with ``weights``),
-``merge_moments`` (``method="rank"``, ``return_stats=False``) and
-``moments_centroids(return_counts=True)``.
+``merge_moments`` (``method="rank"``, ``return_stats=False``, and
+msst_tpu's positional call) and ``moments_centroids(return_counts=True)``;
+``se3.Pose.from_matrix``, ``state.kf_pose`` and ``modbus.ImuModbusDriver``
+(polled over loopback from the port's ``ModbusTcpServer``).
 
 Tolerances: discrete results (indices, masks, keys, counts, iteration
 counts) equal; float32 results computed in the same order to 1e-6, and
 where the two packages sum in another order (matmul distances, prefix
 against direct segment sums, the Kabsch SVD) as stated at each test.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -339,5 +343,99 @@ def test_merge_moments_options_match():
     assert (want[1] > 1.5).sum() > 100   # cells shared by both tables
     M, dropped = tvm.merge_moments(*(tvm.points_to_moments(
         _t(x), _t(np.ones(len(x), bool)), 0.4, _t(origin), 2048,
-        group_bits=1) for x in (a, b)), 1000, method="rank")
+        group_bits=1) for x in (a, b)), 1000, method="rank",
+        return_stats=True)
     assert int(dropped) > 0 and M.key.shape == (1000,)
+
+
+@pytest.mark.parametrize("method", ["sort", "rank"])
+def test_merge_moments_positional_call_matches(method):
+    """msst_tpu's positional form, ``merge_moments(a, b, cap)`` and
+    ``merge_moments(a, b, cap, min_cnt)``, gives the same type in both
+    packages (the table alone, by default) and the same table: keys and
+    counts equal, sums to 1e-4."""
+    origin = np.array([0.3, -0.2, 0.1], np.float32)
+    a = RNG.uniform(-20, 20, (3000, 3)).astype(np.float32)
+    b = RNG.uniform(-25, 25, (2000, 3)).astype(np.float32)
+    b[:500] = a[:500]
+    out = {}
+    for name, mod, T in (("jax", jvm, jnp.asarray), ("torch", tvm, _t)):
+        o = T(origin)
+        A, B = (mod.points_to_moments(T(x), T(np.ones(len(x), bool)), 0.4, o,
+                                      2048, group_bits=1) for x in (a, b))
+        if method == "sort":
+            got = (mod.merge_moments(A, B, 2500),
+                   mod.merge_moments(A, B, 2500, 0.5))
+        else:
+            got = (mod.merge_moments(A, B, 2500, method=method),
+                   mod.merge_moments(A, B, 2500, 0.5, method=method))
+        for M in got:
+            assert type(M).__name__ == "VoxelMoments"
+        out[name] = [[np.asarray(x) if name == "jax" else x.numpy()
+                      for x in (M.key, M.cnt, M.rsum)] for M in got]
+    for want, got in zip(out["jax"], out["torch"]):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[2], want[2], atol=1e-4)
+
+
+def test_pose_from_matrix_and_kf_pose_match():
+    """``se3.Pose.from_matrix`` (batched and single) and ``state.kf_pose``
+    against msst_tpu's: quaternions and translations to 1e-6."""
+    from msst_torch.models.liosam import state as tstate
+    from msst_tpu.models.liosam import state as jstate
+
+    v6 = np.concatenate([RNG.uniform(-3, 3, (16, 3)),
+                         RNG.uniform(-50, 50, (16, 3))], 1).astype(np.float32)
+    v6[0, :3] = [np.pi, 0.0, 0.0]     # a half turn: the w ~ 0 branch
+    mats = np.asarray(jse3.Pose.from_vec6(jnp.asarray(v6)).to_matrix())
+    for m in (mats, mats[3]):
+        want = jse3.Pose.from_matrix(jnp.asarray(m))
+        got = tse3.Pose.from_matrix(_t(m))
+        np.testing.assert_allclose(got.q.numpy(), np.asarray(want.q),
+                                   atol=1e-6)
+        np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t),
+                                   atol=1e-6)
+    # kf_pose reads the store's pose6 alone
+    jkf = SimpleNamespace(pose6=jnp.asarray(v6))
+    tkf = SimpleNamespace(pose6=_t(v6))
+    for i in (0, 5, 15):
+        want = jstate.kf_pose(jkf, jnp.asarray(i))
+        got = tstate.kf_pose(tkf, torch.tensor(i))
+        np.testing.assert_allclose(got.q.numpy(), np.asarray(want.q),
+                                   atol=1e-6)
+        np.testing.assert_array_equal(got.t.numpy(), np.asarray(want.t))
+
+
+def test_imu_modbus_driver_polls_like_reference():
+    """``ImuModbusDriver.poll`` over loopback against the port's
+    ``ModbusTcpServer``: the same dict as msst_tpu's driver polling the same
+    bank, without and with mounting extrinsics; a non-finite register pair
+    gives None in both."""
+    from msst_torch.utils import imu_adapter as tadapt
+    from msst_torch.utils import modbus as tmod
+    from msst_tpu.utils import imu_adapter as jadapt
+    from msst_tpu.utils import modbus as jmod
+
+    server = tmod.ModbusTcpServer("127.0.0.1", 0)
+    server.start()
+    try:
+        vals = [0.1, -0.2, 1.5, 0.01, -0.02, 0.03, 0.2, -0.1, 9.8]
+        for i, v in enumerate(vals):
+            server.set_float(tmod.ImuModbusDriver.REG_START + 2 * i, v)
+        rot = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+        for ext in (None, "rot"):
+            tx = None if ext is None else tadapt.ImuExtrinsics.create(rot)
+            jx = None if ext is None else jadapt.ImuExtrinsics.create(rot)
+            got = tmod.ImuModbusDriver("127.0.0.1", server.port, tx).poll()
+            want = jmod.ImuModbusDriver("127.0.0.1", server.port, jx).poll()
+            assert got is not None and set(got) == set(want)
+            for k in want:
+                np.testing.assert_array_equal(np.asarray(got[k]),
+                                              np.asarray(want[k]))
+        np.testing.assert_allclose(got["acc"], [0.1, 0.2, 9.8], atol=1e-6)
+        server.set_float(tmod.ImuModbusDriver.REG_START + 2, float("nan"))
+        assert tmod.ImuModbusDriver("127.0.0.1", server.port).poll() is None
+        assert jmod.ImuModbusDriver("127.0.0.1", server.port).poll() is None
+    finally:
+        server.stop()

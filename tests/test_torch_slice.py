@@ -1,7 +1,8 @@
 """The port's odometry step as a whole against msst_tpu's LioSam, on the
 20-scan tiny-profile circle drive (seed 5), for both scan-to-map methods
 (the voxel-feature map and the reference-faithful 5-NN path), the default
-device, and the paths the port does not take yet.
+device, and the path the port once refused (windowed dispatch, which now
+runs).
 
 msst_tpu's ``odometry_core`` reads an undefined name ``inp`` where it means
 its prepared scan ``ps`` (mapping.py:1295-1301), so every trace of its step
@@ -488,28 +489,34 @@ def test_gps_keyframe_step_matches_reference(reference):
 
 
 _UNPORTED = {
-    "window": dict(window=4),
+    "window": dict(window=4, scans=3),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_UNPORTED))
 def test_unported_paths_raise(case):
-    """Each path the port does not take yet raises NotImplementedError
-    naming its ROADMAP item, where it is selected."""
+    """The paths the port once refused with NotImplementedError now run
+    where they are selected: windowed dispatch (``window=4``) steps a
+    partial window through ``process_window`` and single scans through
+    ``process_scan``, with finite poses (tests/test_torch_window.py holds
+    it against msst_tpu)."""
     spec = _UNPORTED[case]
     kw = dict(loop_closure_enabled=False, dynamic_init=False)
     kw.update(spec.get("params", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item L"):
-        lio = TLioSam(ttiny(**kw), device="cpu",
-                      window=spec.get("window", 1))
-        data = sim.make_dataset(sim.World(), sim.SimTrajectory(kind="circle"),
-                                n_scans=spec.get("scans", 0), scan_dt=0.5,
-                                n_scan=16, horizon=360, seed=1)
-        for s in data:
-            lio.process_scan(s["xyz"], s["ring"], s["time_rel"],
-                             s["scan_start"], imu_t=s["imu_t"],
-                             imu_gyro=s["imu_gyro"], imu_acc=s["imu_acc"],
-                             imu_rpy=s["imu_rpy"])
+    lio = TLioSam(ttiny(**kw), device="cpu", window=spec.get("window", 1))
+    data = sim.make_dataset(sim.World(), sim.SimTrajectory(kind="circle"),
+                            n_scans=spec.get("scans", 0), scan_dt=0.5,
+                            n_scan=16, horizon=360, seed=1)
+    keys = ("xyz", "ring", "time_rel", "scan_start", "imu_t", "imu_gyro",
+            "imu_acc", "imu_rpy")
+    outs = lio.process_window([{k: s[k] for k in keys} for s in data[:2]])
+    assert outs.pose6.shape == (lio.window, 6)
+    s = data[2]
+    lio.process_scan(s["xyz"], s["ring"], s["time_rel"], s["scan_start"],
+                     imu_t=s["imu_t"], imu_gyro=s["imu_gyro"],
+                     imu_acc=s["imu_acc"], imu_rpy=s["imu_rpy"])
+    traj = lio.trajectory.as_matrices()
+    assert traj.shape == (3, 4, 4) and np.isfinite(traj).all()
 
 
 def test_default_params_construct_and_step():

@@ -162,7 +162,8 @@ def test_moments_match_jax():
             cx, cm, cc = mod.moments_centroids(M, 0.4, o, group_bits=1,
                                                return_counts=True)
         else:
-            M, dm = mod.merge_moments(A, B, 1500, **merge_kw)
+            M, dm = mod.merge_moments(A, B, 1500, return_stats=True,
+                                      **merge_kw)
             cx, cm = mod.moments_centroids(M, 0.4, o, group_bits=1)
             cc = torch.where(cm, M.cnt, 0.0)
         res.append([np.asarray(x) if not hasattr(x, "numpy") else x.numpy()
