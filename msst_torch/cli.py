@@ -1,13 +1,15 @@
 """``msst-torch``: the port's command line (commands of msst_tpu's
 ``msst``, with the same arguments and outputs).
 
-    msst-torch lio-sim [--scans N] [--horizon H] [--loop]
+    msst-torch lio-sim [--scans N] [--horizon H] [--loop] [--trace DIR]
     msst-torch lio-kitti DIR [--rings 64] [--horizon 1800] [--scans N] [--loop]
                          [--gps] [--tiny] [--max-points N] [--output F]
                          [--stats-json F] [--viz-every N] [--viz-dir D]
+                         [--trace DIR]
     msst-torch lio-bag BAG --cloud-topic T --imu-topic T [--scans N] [--loop]
                        [--tiny] [--sensor auto|velodyne|ouster|livox]
                        [--output F] [--viz-every N] [--viz-dir D]
+                       [--trace DIR]
     msst-torch viz-serve [DIR] [--port 8642]
     msst-torch decode-pcap IN.pcap OUT.pcd [--max-packets 100000]
     msst-torch calibrate TARGET.pcd SOURCE.pcd [...] [--method lica|auto|ndt]
@@ -30,7 +32,11 @@ the OXTS fix as GPS factors once its datum has locked (30 fixes).
 Ouster or Livox point layouts).  With ``--viz-every N`` both rewrite
 ``global_map.ply``, ``trajectory.json`` and ``viewer.html`` in ``--viz-dir``
 every N scans (and ``trajectory.png`` where matplotlib is installed), which
-``viz-serve`` serves with live reload.  ``decode-pcap`` decodes a pcap of
+``viz-serve`` serves with live reload.  ``--trace DIR`` on the three LIO
+commands writes ``DIR/trace.json``, a Chrome trace of the whole run: the
+device kernels and the program's spans (``msst/pipeline``, ``msst/step``,
+``msst/s2m``, ``msst/gn_iter``, ``msst/keyframe``, ``msst/loop_attempt``,
+...; ``msst_torch.utils.profiling``) from every thread on one timeline.  ``decode-pcap`` decodes a pcap of
 1206-byte Velodyne-style packets into a PCD with the native decoder
 (``msst_torch/native/msst_native.cc``, built with g++ at its first use).
 
@@ -439,13 +445,20 @@ def main(argv=None):
                            help="torch device: cuda (default) or cpu")
         return s
 
+    def traced(s):
+        s.add_argument("--trace", default=None, metavar="DIR",
+                       help="write DIR/trace.json: the kernels and the "
+                       "program's spans on one timeline")
+
     s = parser("lio-sim")
+    traced(s)
     s.add_argument("--scans", type=int, default=40)
     s.add_argument("--horizon", type=int, default=720)
     s.add_argument("--loop", action="store_true")
     s.set_defaults(fn=cmd_lio_sim)
 
     s = parser("lio-kitti")
+    traced(s)
     s.add_argument("dir")
     s.add_argument("--rings", type=int, default=64)
     s.add_argument("--horizon", type=int, default=1800)
@@ -467,6 +480,7 @@ def main(argv=None):
     s.set_defaults(fn=cmd_lio_kitti)
 
     s = parser("lio-bag")
+    traced(s)
     s.add_argument("bag")
     s.add_argument("--cloud-topic", required=True)
     s.add_argument("--imu-topic", required=True)
@@ -526,7 +540,13 @@ def main(argv=None):
     s.set_defaults(fn=cmd_track)
 
     args = ap.parse_args(argv)
-    args.fn(args)
+    if getattr(args, "trace", None):
+        from .utils import profiling
+
+        with profiling.trace(args.trace):
+            args.fn(args)
+    else:
+        args.fn(args)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,8 @@ import torch
 
 from ...ops import gather, knn, registration, se3, voxel, voxelmap
 from ...ops.pointcloud import Cloud
+from ...utils import profiling
+from ...utils.profiling import span, to_host
 from . import mapping
 from .params import LioParams
 from .state import KeyframeStore, LioState
@@ -172,93 +174,119 @@ def _put(x: Tensor, idx: Tensor, val) -> Tensor:
                                 val.reshape((1,) + x.shape[1:]))
 
 
-def loop_closure_step(state: LioState, p: LioParams
+def loop_closure_step(state: LioState, p: LioParams, timings=None
                       ) -> tuple[LioState, LoopResult]:
     """Detect and close one loop; returns (new_state, LoopResult).  The
     state given is not written: a closed loop returns a new one.
 
     The eligible candidates are tried nearest first until one passes the
     fitness gate; the attempt's clouds are built only when one is
-    eligible."""
+    eligible.  The attempt is a ``loop_attempt`` span whose args are its
+    result; `timings`, where given, takes its host seconds under
+    ``"loop_dispatch"``."""
+    with span("loop_attempt", sink=timings, key="loop_dispatch") as sp:
+        return _attempt(state, p, sp)
+
+
+def _attempt(state: LioState, p: LioParams, sp):
     kf = state.kf
     dev = kf.pose6.device
-    cur, cands, cands_ok = _loop_candidates(kf, p)
-    eligible = cands_ok.tolist()
+    with span("candidates"):
+        cur, cands, cands_ok = _loop_candidates(kf, p)
+        eligible = to_host(cands_ok, "loop.eligible", Tensor.tolist)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     inf = torch.full((), torch.inf, device=dev)
     if not any(eligible):
+        sp.note(eligible=0, tried=0, found=False)
         return state, LoopResult(torch.zeros((), dtype=torch.bool, device=dev),
                                  cur, zero, inf, zero, zero)
 
-    cur_c, cur_s = _kf_class_clouds(state, cur, p)
-    cur_xyz, cur_mask = _merge(cur_c, cur_s)
-    cap_cur, cap_hist = _coarse_caps(p)
-    cur_coarse = _coarsen(cur_xyz, cur_mask, p, cap_cur)
+    with span("submap", role="current"):
+        cur_c, cur_s = _kf_class_clouds(state, cur, p)
+        cur_xyz, cur_mask = _merge(cur_c, cur_s)
+        cap_cur, cap_hist = _coarse_caps(p)
+        cur_coarse = _coarsen(cur_xyz, cur_mask, p, cap_cur)
     corr = p.history_keyframe_search_radius * 2.0
 
     good = False
     tried = 0
+    fine_iters: list = []
     for i, ok in enumerate(eligible):
         cand = cands[i]
         if not ok:
             pose, fit, iters = se3.Pose.identity(device=dev), inf, zero
             continue
         tried += 1
-        hist_c, hist_s = _submap_class_clouds(state, cand, p)
-        hist_xyz, hist_mask = _merge(hist_c, hist_s)
-        hist_coarse = _coarsen(hist_xyz, hist_mask, p, cap_hist)
+        with span("submap", role="history", candidate=i):
+            hist_c, hist_s = _submap_class_clouds(state, cand, p)
+            hist_xyz, hist_mask = _merge(hist_c, hist_s)
+            hist_coarse = _coarsen(hist_xyz, hist_mask, p, cap_hist)
         # COARSE: the reference's wide basin (setMaxCorrespondenceDistance
         # (radius*2) :560, the epsilons of :562-563) on the coarse clouds
-        res = registration.icp_point2point_brute(
-            cur_coarse.xyz, cur_coarse.mask, hist_coarse.xyz,
-            hist_coarse.mask, se3.Pose.identity(device=dev), max_iters=100,
-            max_corr_dist=corr, transformation_eps=1e-6, rel_mse_eps=1e-6)
-        pose, iters = res.pose, res.iters
-        fit = _p2p_fitness(cur_xyz, cur_mask, hist_xyz, hist_mask, pose, corr)
-        if p.loop_fine == "plane":
-            origin = _rows(kf.pose6, cand.reshape(1))[0, 3:]
+        with span("coarse_icp", candidate=i):
+            res = registration.icp_point2point_brute(
+                cur_coarse.xyz, cur_coarse.mask, hist_coarse.xyz,
+                hist_coarse.mask, se3.Pose.identity(device=dev),
+                max_iters=100, max_corr_dist=corr, transformation_eps=1e-6,
+                rel_mse_eps=1e-6)
+            pose, iters = res.pose, res.iters
+            fit = _p2p_fitness(cur_xyz, cur_mask, hist_xyz, hist_mask, pose,
+                               corr)
+        with span("fine", candidate=i):
+            if p.loop_fine == "plane":
+                origin = _rows(kf.pose6, cand.reshape(1))[0, 3:]
 
-            def gn(pose6, leaf_mul, n_iters):
-                cvox = voxelmap.build(
-                    hist_c.xyz, hist_c.mask, leaf_mul * p.vox_corner_leaf,
-                    p.vox_corner_cap, "line",
-                    table_size=2 * p.vox_corner_cap, origin=origin)
-                svox = voxelmap.build(
-                    hist_s.xyz, hist_s.mask, leaf_mul * p.vox_surf_leaf,
-                    p.vox_surf_cap, "plane",
-                    table_size=2 * p.vox_surf_cap, origin=origin,
-                    plane_min_spread=p.vox_plane_min_spread)
-                return registration.scan_to_map_voxel(
-                    cur_c.xyz, cur_c.mask, cur_s.xyz, cur_s.mask, cvox, svox,
-                    pose6, max_iters=n_iters,
-                    eig_threshold=p.degeneracy_threshold).pose
+                def gn(pose6, leaf_mul, n_iters):
+                    cvox = voxelmap.build(
+                        hist_c.xyz, hist_c.mask, leaf_mul * p.vox_corner_leaf,
+                        p.vox_corner_cap, "line",
+                        table_size=2 * p.vox_corner_cap, origin=origin)
+                    svox = voxelmap.build(
+                        hist_s.xyz, hist_s.mask, leaf_mul * p.vox_surf_leaf,
+                        p.vox_surf_cap, "plane",
+                        table_size=2 * p.vox_surf_cap, origin=origin,
+                        plane_min_spread=p.vox_plane_min_spread)
+                    r = registration.scan_to_map_voxel(
+                        cur_c.xyz, cur_c.mask, cur_s.xyz, cur_s.mask, cvox,
+                        svox, pose6, max_iters=n_iters,
+                        eig_threshold=p.degeneracy_threshold)
+                    if sp:
+                        fine_iters.append(r.iterations)
+                    return r.pose
 
-            # three leaf rungs: the 4x pass's ~3 m reach re-captures salient
-            # structure the coarse p2p stage left biased along a corridor
-            fine = se3.Pose.from_vec6(
-                gn(gn(gn(pose.to_vec6(), 4.0, 8), 2.0, 8), 1.0, 12))
-            fine_fit = _p2p_fitness(cur_xyz, cur_mask, hist_xyz, hist_mask,
-                                    fine, corr)
-            # a guard, not a preference: point-to-plane may slide along
-            # planes, which p2p fitness mildly penalizes
-            use = torch.isfinite(fine_fit) & (fine_fit < 2.0 * fit)
-            pose = se3.Pose(torch.where(use, fine.q, pose.q),
-                            torch.where(use, fine.t, pose.t))
-            fit = torch.where(use, fine_fit, fit)
-        elif p.loop_fine == "p2p" and p.loop_icp_refine_dist > 0.0:
-            res2 = registration.icp_point2point_brute(
-                cur_xyz, cur_mask, hist_xyz, hist_mask, pose, max_iters=50,
-                max_corr_dist=p.loop_icp_refine_dist,
-                transformation_eps=1e-6, rel_mse_eps=1e-6)
-            use = res2.converged & (res2.fitness <= fit)
-            pose = se3.Pose(torch.where(use, res2.pose.q, pose.q),
-                            torch.where(use, res2.pose.t, pose.t))
-            fit = torch.where(use, res2.fitness, fit)
-        good = bool(res.converged & (fit < p.history_keyframe_fitness_score))
+                # three leaf rungs: the 4x pass's ~3 m reach re-captures
+                # salient structure the coarse p2p stage left biased along
+                # a corridor
+                fine = se3.Pose.from_vec6(
+                    gn(gn(gn(pose.to_vec6(), 4.0, 8), 2.0, 8), 1.0, 12))
+                fine_fit = _p2p_fitness(cur_xyz, cur_mask, hist_xyz,
+                                        hist_mask, fine, corr)
+                # a guard, not a preference: point-to-plane may slide along
+                # planes, which p2p fitness mildly penalizes
+                use = torch.isfinite(fine_fit) & (fine_fit < 2.0 * fit)
+                pose = se3.Pose(torch.where(use, fine.q, pose.q),
+                                torch.where(use, fine.t, pose.t))
+                fit = torch.where(use, fine_fit, fit)
+            elif p.loop_fine == "p2p" and p.loop_icp_refine_dist > 0.0:
+                res2 = registration.icp_point2point_brute(
+                    cur_xyz, cur_mask, hist_xyz, hist_mask, pose,
+                    max_iters=50, max_corr_dist=p.loop_icp_refine_dist,
+                    transformation_eps=1e-6, rel_mse_eps=1e-6)
+                use = res2.converged & (res2.fitness <= fit)
+                pose = se3.Pose(torch.where(use, res2.pose.q, pose.q),
+                                torch.where(use, res2.pose.t, pose.t))
+                fit = torch.where(use, res2.fitness, fit)
+            good = to_host(res.converged
+                           & (fit < p.history_keyframe_fitness_score),
+                           "loop.accept", bool)
         if good:
-            state = _add_loop(state, p, cur, cand, pose, fit, cur_coarse,
-                              hist_coarse)
+            with span("close"):
+                state = _add_loop(state, p, cur, cand, pose, fit, cur_coarse,
+                                  hist_coarse)
             break
+    if sp:
+        sp.note(eligible=sum(eligible), tried=tried, found=good, fitness=fit,
+                icp_iters=iters, fine_gn_iters=fine_iters)
     return state, LoopResult(torch.tensor(good, device=dev), cur, cand, fit,
                              iters, torch.tensor(tried, dtype=torch.int32,
                                                  device=dev))
@@ -270,6 +298,7 @@ def _add_loop(state: LioState, p: LioParams, cur: Tensor, cand: Tensor,
     """The loop factor cur -> cand, the full-graph re-solve (the reference's
     extra iSAM passes after a loop, :1540-1548) and the local map rebuilt
     from the rewritten history (``correctPoses`` :1583-1614)."""
+    profiling.count("loop_closures")
     kf, graph = state.kf, state.graph
     K = kf.pose6.shape[0]
     pair = _rows(kf.pose6, torch.stack([cur, cand]))

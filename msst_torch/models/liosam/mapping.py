@@ -32,6 +32,8 @@ from ...ops import graph as graph_ops
 from ...ops import imu as imu_ops
 from ...ops import knn, registration, se3, voxel, voxelmap
 from ...ops.pointcloud import Cloud, compact
+from ...utils import profiling
+from ...utils.profiling import span, to_host, traced
 from . import imu_fusion
 from .frontend import ScanInput, run_frontend, run_frontend_grid
 from .params import LioParams
@@ -106,6 +108,7 @@ def unpack_step_input(points: Tensor, aux: Tensor, p: LioParams) -> StepInput:
     )
 
 
+@traced("step")
 def odometry_step_packed(state: LioState, points: Tensor, aux: Tensor,
                          p: LioParams):
     """One scan from the packed host arrays (the pipeline's entry)."""
@@ -154,7 +157,8 @@ def _valid_slots(aux_w: Tensor, p: LioParams, n_valid: Optional[int]):
     (aux row 2T, column 7) in one copy."""
     W = aux_w.shape[0]
     if n_valid is None:
-        return (aux_w[:, 2 * p.imu_window, 7] > 0.5).tolist()
+        return to_host(aux_w[:, 2 * p.imu_window, 7] > 0.5, "step.slot_mask",
+                       Tensor.tolist)
     return [i < n_valid for i in range(W)]
 
 
@@ -164,9 +168,10 @@ def _window_core(state: LioState, preps: list, valid: list, p: LioParams):
     one (msst_tpu's ``lax.cond`` in a ``lax.scan``; here the host knows the
     valid slots).  Returns (state, StepOutput stacked on a leading W axis)."""
     outs = []
-    for ps, ok in zip(preps, valid):
+    for i, (ps, ok) in enumerate(zip(preps, valid)):
         if ok:
-            state, out = odometry_core(state, ps, p)
+            with profiling.slot(i):
+                state, out = odometry_core(state, ps, p)
         else:
             out = _passthrough_output(state, p)
         outs.append(out)
@@ -181,8 +186,12 @@ def odometry_window_packed(state: LioState, points_w: Tensor, aux_w: Tensor,
 
     points_w: (W, max_points, 5);  aux_w: (W, 2T+3, 8)"""
     valid = _valid_slots(aux_w, p, n_valid)
-    preps = [prepare_scan(unpack_step_input(points_w[i], aux_w[i], p), p)
-             if ok else None for i, ok in enumerate(valid)]
+    preps = [None] * len(valid)
+    for i, ok in enumerate(valid):
+        if ok:
+            with profiling.slot(i):
+                preps[i] = prepare_scan(
+                    unpack_step_input(points_w[i], aux_w[i], p), p)
     return _window_core(state, preps, valid, p)
 
 
@@ -202,9 +211,13 @@ def odometry_window_grids(state: LioState, r: Tensor, az: Tensor,
     def grid(g, i):
         return g[i] if per_scan else g
 
-    preps = [prepare_scan_grid(r3[i], grid(az, i), grid(tcol, i),
-                               grid(elev, i), aux_w[i], p)
-             if ok else None for i, ok in enumerate(valid)]
+    preps = [None] * len(valid)
+    for i, ok in enumerate(valid):
+        if ok:
+            with profiling.slot(i):
+                preps[i] = prepare_scan_grid(r3[i], grid(az, i),
+                                             grid(tcol, i), grid(elev, i),
+                                             aux_w[i], p)
     return _window_core(state, preps, valid, p)
 
 
@@ -220,6 +233,7 @@ def _f32(halves: Tensor) -> Tensor:
     return halves.contiguous().view(torch.float32)
 
 
+@traced("step")
 def odometry_window_flat(state: LioState, flat_w: Tensor, p: LioParams,
                          n_valid: Optional[int] = None):
     """:func:`odometry_window_packed` fed by one float32 buffer
@@ -233,6 +247,7 @@ def odometry_window_flat(state: LioState, flat_w: Tensor, p: LioParams,
     return odometry_window_packed(state, pts_w, aux_w, p, n_valid)
 
 
+@traced("step")
 def odometry_window_flat_q16(state: LioState, flat_w: Tensor, p: LioParams,
                              n_valid: Optional[int] = None):
     """:func:`odometry_window_flat` fed by one int16 buffer: points
@@ -252,6 +267,7 @@ def odometry_window_flat_q16(state: LioState, flat_w: Tensor, p: LioParams,
     return odometry_window_packed(state, pts_w, aux_w, p, n_valid)
 
 
+@traced("step")
 def odometry_window_flat_ri(state: LioState, flat_w: Tensor, p: LioParams,
                             n_valid: Optional[int] = None):
     """Range-image upload: per-pixel ranges (int16 at RI_RANGE_SCALE; an
@@ -314,6 +330,7 @@ def ri2_flat_len(p: LioParams, window: int) -> int:
     return window * (S * H + (2 * T + 3) * 8 * 2) + 2 * H + 2 * H + 2 * S
 
 
+@traced("step")
 def odometry_window_flat_ri2(state: LioState, flat_w: Tensor, p: LioParams,
                              n_valid: Optional[int] = None):
     """:func:`odometry_window_flat_ri` with the azimuth / column time /
@@ -421,6 +438,7 @@ def _use_incremental(p: LioParams) -> bool:
     return p.scan2map_method == "voxel" and p.map_update == "incremental"
 
 
+@traced("rebuild")
 def _rebuild_local_map(kf: KeyframeStore, position: Tensor, scan_time: Tensor,
                        p: LioParams, prev: Optional[LocalMap] = None
                        ) -> LocalMap:
@@ -483,6 +501,7 @@ def _moment_group_bits(p: LioParams) -> tuple[Optional[int], Optional[int]]:
             _group_bits(p.vox_surf_leaf, p.mapping_surf_leaf_size))
 
 
+@traced("refit")
 def _features_from_moments(corner_mom, surf_mom, anchor: Tensor, p: LioParams,
                            mom_dropped: Optional[Tensor] = None) -> LocalMap:
     """LocalMap from the moment tables: fine-cell centroids feed the coarse
@@ -517,6 +536,7 @@ def _features_from_moments(corner_mom, surf_mom, anchor: Tensor, p: LioParams,
     )
 
 
+@traced("rebake")
 def _rebake_local_map(kf: KeyframeStore, position: Tensor, scan_time: Tensor,
                       p: LioParams):
     """Full re-bake: gather nearby keyframes at their CURRENT poses, rebuild
@@ -588,6 +608,7 @@ def _graph_optimize(graph, p: LioParams, free_mask=None, iters=2):
 # ---------------------------------------------------------------------------
 
 
+@traced("evict")
 def _evict_oldest_keyframe(state: LioState, p: LioParams) -> LioState:
     """Ring-buffer eviction with marginalization: drop the oldest keyframe
     and fold its information into a prior on the new oldest pose (the
@@ -609,7 +630,8 @@ def _evict_oldest_keyframe(state: LioState, p: LioParams) -> LioState:
     dev = kf.pose6.device
 
     lm = state.local_map
-    if _use_incremental(p) and bool(kf.baked[0] & lm.valid):
+    if _use_incremental(p) and to_host(kf.baked[0] & lm.valid, "evict.baked",
+                                       bool):
         cmom, smom = _kf_moments(kf, 0, kf.baked_pose6[0], lm.anchor, p)
         ck, sk = _moment_group_bits(p)
         cmerged, _ = voxelmap.merge_moments(
@@ -695,89 +717,99 @@ def _evict_oldest_keyframe(state: LioState, p: LioParams) -> LioState:
     return state._replace(kf=kf, graph=graph)
 
 
+@traced("keyframe")
 def _insert_keyframe(state: LioState, pose6: Tensor, scan_time: Tensor,
                      corner: Cloud, surf: Cloud, ps: "PreparedScan",
                      p: LioParams, degenerate: Tensor) -> LioState:
+    profiling.count("keyframes")
     K = state.kf.pose6.shape[0]
-    slot = int(state.kf.count)
+    slot = to_host(state.kf.count, "keyframe.slot", int)
     if slot >= K:
         # at capacity: evict the oldest keyframe with marginalization
         state = _evict_oldest_keyframe(state, p)
         slot = K - 1
-    dev = pose6.device
-    kf, graph = state.kf, state.graph
-    pose = se3.Pose.from_vec6(pose6)
+    with span("factors"):
+        dev = pose6.device
+        kf, graph = state.kf, state.graph
+        pose = se3.Pose.from_vec6(pose6)
 
-    corner = compact(corner, p.kf_corner_cap)
-    surf = compact(surf, p.kf_surf_cap)
-    kf = kf._replace(
-        pose6=_set(kf.pose6, slot, pose6),
-        time=_set(kf.time, slot, scan_time),
-        corner_xyz=_set(kf.corner_xyz, slot, corner.xyz),
-        corner_mask=_set(kf.corner_mask, slot, corner.mask),
-        surf_xyz=_set(kf.surf_xyz, slot, surf.xyz),
-        surf_mask=_set(kf.surf_mask, slot, surf.mask),
-        count=torch.tensor(slot + 1, dtype=torch.int32, device=dev),
-    )
-    graph = graph._replace(
-        poses=se3.Pose(_set(graph.poses.q, slot, pose.q),
-                       _set(graph.poses.t, slot, pose.t)),
-        pose_mask=_set(graph.pose_mask, slot, True))
+        corner = compact(corner, p.kf_corner_cap)
+        surf = compact(surf, p.kf_surf_cap)
+        kf = kf._replace(
+            pose6=_set(kf.pose6, slot, pose6),
+            time=_set(kf.time, slot, scan_time),
+            corner_xyz=_set(kf.corner_xyz, slot, corner.xyz),
+            corner_mask=_set(kf.corner_mask, slot, corner.mask),
+            surf_xyz=_set(kf.surf_xyz, slot, surf.xyz),
+            surf_mask=_set(kf.surf_mask, slot, surf.mask),
+            count=torch.tensor(slot + 1, dtype=torch.int32, device=dev),
+        )
+        graph = graph._replace(
+            poses=se3.Pose(_set(graph.poses.q, slot, pose.q),
+                           _set(graph.poses.t, slot, pose.t)),
+            pose_mask=_set(graph.pose_mask, slot, True))
 
-    if slot == 0:
-        # prior on the first keyframe (:1386-1394)
-        f = graph.priors
-        si = torch.tensor([1.0 / p.prior_sigma_rot] * 3
-                          + [1.0 / p.prior_sigma_trans] * 3, device=dev)
-        graph = graph._replace(priors=f._replace(
-            idx=_set(f.idx, 0, 0),
-            meas=se3.Pose(_set(f.meas.q, 0, pose.q), _set(f.meas.t, 0, pose.t)),
-            sqrt_info=_set(f.sqrt_info, 0, si),
-            mask=_set(f.mask, 0, True)))
-    else:
-        # odometry factor prev -> slot (:1388-1394); a DEGENERATE match gets
-        # a soft translation sigma so absolute fixes can move the chain
-        prev = slot - 1
-        meas = se3.Pose.from_vec6(kf.pose6[prev]).between(pose)
-        b = graph.betweens
-        tsig = p.odom_sigma_trans * torch.where(degenerate,
-                                                p.degen_between_scale, 1.0)
-        si = torch.cat([torch.full((3,), 1.0 / p.odom_sigma_rot, device=dev),
-                        torch.ones(3, device=dev) / tsig])
-        graph = graph._replace(betweens=b._replace(
-            i=_set(b.i, prev, prev), j=_set(b.j, prev, slot),
-            meas=se3.Pose(_set(b.meas.q, prev, meas.q),
-                          _set(b.meas.t, prev, meas.t)),
-            sqrt_info=_set(b.sqrt_info, prev, si),
-            mask=_set(b.mask, prev, True)))
+        if slot == 0:
+            # prior on the first keyframe (:1386-1394)
+            f = graph.priors
+            si = torch.tensor([1.0 / p.prior_sigma_rot] * 3
+                              + [1.0 / p.prior_sigma_trans] * 3, device=dev)
+            graph = graph._replace(priors=f._replace(
+                idx=_set(f.idx, 0, 0),
+                meas=se3.Pose(_set(f.meas.q, 0, pose.q),
+                              _set(f.meas.t, 0, pose.t)),
+                sqrt_info=_set(f.sqrt_info, 0, si),
+                mask=_set(f.mask, 0, True)))
+        else:
+            # odometry factor prev -> slot (:1388-1394); a DEGENERATE match
+            # gets a soft translation sigma so absolute fixes can move the
+            # chain
+            prev = slot - 1
+            meas = se3.Pose.from_vec6(kf.pose6[prev]).between(pose)
+            b = graph.betweens
+            tsig = p.odom_sigma_trans * torch.where(degenerate,
+                                                    p.degen_between_scale, 1.0)
+            si = torch.cat([torch.full((3,), 1.0 / p.odom_sigma_rot,
+                                       device=dev),
+                            torch.ones(3, device=dev) / tsig])
+            graph = graph._replace(betweens=b._replace(
+                i=_set(b.i, prev, prev), j=_set(b.j, prev, slot),
+                meas=se3.Pose(_set(b.meas.q, prev, meas.q),
+                              _set(b.meas.t, prev, meas.t)),
+                sqrt_info=_set(b.sqrt_info, prev, si),
+                mask=_set(b.mask, prev, True)))
 
-    # GPS factor (addGPSFactor :1397-1475): fix quality below the threshold,
-    # and only while the estimator is uncertain or the match degenerate
-    n_gps = state.n_gps
-    gps_quality_ok = torch.max(ps.gps_sigma ** 2) < p.gps_cov_threshold
-    pos_cov = torch.trace(state.filter.cov[6:9, 6:9])
-    pose_uncertain = (pos_cov >= p.pose_cov_threshold) | degenerate
-    if bool(ps.gps_valid & gps_quality_ok & pose_uncertain):
-        f = graph.gps
-        gslot = min(int(n_gps), f.idx.shape[0] - 1)
-        gxyz, gsig = ps.gps_xyz, ps.gps_sigma
-        if not p.use_gps_elevation:
-            # useGpsElevation=false (:1436-1441): pin z to the estimate
-            gxyz = _set(gxyz, 2, pose.t[2])
-            gsig = _set(gsig, 2, 0.01)
-        graph = graph._replace(gps=f._replace(
-            idx=_set(f.idx, gslot, slot), xyz=_set(f.xyz, gslot, gxyz),
-            sqrt_info=_set(f.sqrt_info, gslot,
-                           1.0 / torch.clamp(gsig, min=1e-3)),
-            mask=_set(f.mask, gslot, True)))
-        n_gps = n_gps + 1
+        # GPS factor (addGPSFactor :1397-1475): fix quality below the
+        # threshold, and only while the estimator is uncertain or the match
+        # degenerate
+        n_gps = state.n_gps
+        gps_quality_ok = torch.max(ps.gps_sigma ** 2) < p.gps_cov_threshold
+        pos_cov = torch.trace(state.filter.cov[6:9, 6:9])
+        pose_uncertain = (pos_cov >= p.pose_cov_threshold) | degenerate
+        if to_host(ps.gps_valid & gps_quality_ok & pose_uncertain,
+                   "keyframe.gps", bool):
+            f = graph.gps
+            gslot = min(to_host(n_gps, "keyframe.gps_slot", int),
+                        f.idx.shape[0] - 1)
+            gxyz, gsig = ps.gps_xyz, ps.gps_sigma
+            if not p.use_gps_elevation:
+                # useGpsElevation=false (:1436-1441): pin z to the estimate
+                gxyz = _set(gxyz, 2, pose.t[2])
+                gsig = _set(gsig, 2, 0.01)
+            graph = graph._replace(gps=f._replace(
+                idx=_set(f.idx, gslot, slot), xyz=_set(f.xyz, gslot, gxyz),
+                sqrt_info=_set(f.sqrt_info, gslot,
+                               1.0 / torch.clamp(gsig, min=1e-3)),
+                mask=_set(f.mask, gslot, True)))
+            n_gps = n_gps + 1
 
     # graph solve, skipped while only the prior + odometry chain exist (it
     # is then at its optimum by construction); GPS frees the full graph
     has_gps = torch.sum(graph.gps.mask) > 0
     free = graph.pose_mask & (
         (torch.arange(K, device=dev) >= kf.count - p.graph_window) | has_gps)
-    if not p.graph_lazy_solve or bool(has_gps | (state.n_loop > 0)):
+    if not p.graph_lazy_solve or to_host(has_gps | (state.n_loop > 0),
+                                         "keyframe.solve", bool):
         graph = _graph_optimize(graph, p, free_mask=free, iters=2)
 
     # correctPoses: keyframe poses follow the graph
@@ -803,20 +835,21 @@ def _insert_keyframe(state: LioState, pose6: Tensor, scan_time: Tensor,
     need_rebake = ((~lm.valid)
                    | (torch.sum((pos - lm.anchor) ** 2) > p.map_anchor_radius ** 2)
                    | (torch.max(drift) > p.map_stale_tolerance))
-    if bool(need_rebake):
+    if to_host(need_rebake, "keyframe.rebake", bool):
         local_map, baked_pose6, baked = _rebake_local_map(kf, pos, scan_time, p)
     else:
-        cmom, smom = _kf_moments(kf, slot, kf.pose6[slot], lm.anchor, p)
-        trim_r = p.surrounding_keyframe_search_radius
-        ck, sk = _moment_group_bits(p)
-        cmerged, c_drop = voxelmap.merge_moments(
-            lm.corner_mom, cmom, p.map_corner_cap, trim_center=pos,
-            trim_radius=trim_r, leaf=p.mapping_corner_leaf_size,
-            origin=lm.anchor, group_bits=ck or 0, return_stats=True)
-        smerged, s_drop = voxelmap.merge_moments(
-            lm.surf_mom, smom, p.map_surf_cap, trim_center=pos,
-            trim_radius=trim_r, leaf=p.mapping_surf_leaf_size,
-            origin=lm.anchor, group_bits=sk or 0, return_stats=True)
+        with span("merge"):
+            cmom, smom = _kf_moments(kf, slot, kf.pose6[slot], lm.anchor, p)
+            trim_r = p.surrounding_keyframe_search_radius
+            ck, sk = _moment_group_bits(p)
+            cmerged, c_drop = voxelmap.merge_moments(
+                lm.corner_mom, cmom, p.map_corner_cap, trim_center=pos,
+                trim_radius=trim_r, leaf=p.mapping_corner_leaf_size,
+                origin=lm.anchor, group_bits=ck or 0, return_stats=True)
+            smerged, s_drop = voxelmap.merge_moments(
+                lm.surf_mom, smom, p.map_surf_cap, trim_center=pos,
+                trim_radius=trim_r, leaf=p.mapping_surf_leaf_size,
+                origin=lm.anchor, group_bits=sk or 0, return_stats=True)
         local_map = _features_from_moments(
             cmerged, smerged, lm.anchor, p,
             mom_dropped=lm.mom_dropped + torch.stack([c_drop, s_drop]))
@@ -861,12 +894,14 @@ class PreparedScan(NamedTuple):
     init_vel_valid: Tensor
 
 
+@traced("prepare")
 def prepare_scan(inp: StepInput, p: LioParams) -> PreparedScan:
     """The state-independent part: frontend, mapping-leaf downsample
     (``downsampleCurrentScan`` :955-967), zero-bias IMU preintegration."""
     return _prepare_tail(run_frontend(inp.scan, p), inp, p)
 
 
+@traced("prepare")
 def prepare_scan_grid(r_grid: Tensor, az: Tensor, tcol: Tensor, elev: Tensor,
                       aux: Tensor, p: LioParams) -> PreparedScan:
     """:func:`prepare_scan` for a scan shipped as a range image: the grid
@@ -912,6 +947,7 @@ def _prepare_tail(front, inp: StepInput, p: LioParams) -> PreparedScan:
     )
 
 
+@traced("core")
 def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
     """The state-dependent estimator step over a prepared scan."""
     dev = ps.scan_start.device
@@ -919,9 +955,10 @@ def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
     enough = (ps.n_corner > p.edge_feature_min_valid_num) & (
         ps.n_surf > p.surf_feature_min_valid_num)
     # the step's branch flags, read back together
-    initialized, has_imu, have_map, enough, imu_available = torch.stack([
-        state.initialized, ps.pre.n_used > 0, (state.kf.count > 0) & lm.valid,
-        enough, ps.imu_available]).tolist()
+    initialized, has_imu, have_map, enough, imu_available = to_host(
+        torch.stack([state.initialized, ps.pre.n_used > 0,
+                     (state.kf.count > 0) & lm.valid, enough,
+                     ps.imu_available]), "core.gates", Tensor.tolist)
 
     # --- filter propagation through the zero-bias preintegration, corrected
     # to the live bias (first, so the scan-start velocity can deskew)
@@ -1007,7 +1044,7 @@ def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
     small = torch.all(drpy < p.surrounding_keyframe_adding_angle_threshold) & (
         torch.linalg.norm(d.t) < p.surrounding_keyframe_adding_dist_threshold)
     is_kf = (state.kf.count == 0) | ~small
-    if bool(is_kf):
+    if to_host(is_kf, "core.keyframe", bool):
         state2 = _insert_keyframe(state, pose6, ps.scan_start, corner_ds,
                                   surf_ds, ps, p, degenerate)
     else:
@@ -1028,7 +1065,7 @@ def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
         fs_new = imu_fusion.update_with_pose(
             fs_prop, pose_out, p.odom_sigma_rot * 10, p.odom_sigma_trans * 10,
             degenerate)
-        if bool(imu_fusion.reset_needed(fs_new)):
+        if to_host(imu_fusion.reset_needed(fs_new), "core.reset", bool):
             fs_new = init_filter()
     else:
         fs_new = fs_prop
@@ -1041,7 +1078,7 @@ def odometry_core(state: LioState, ps: PreparedScan, p: LioParams):
               & (torch.max(ps.gps_sigma ** 2) < p.gps_cov_threshold)
               & ((torch.trace(fs_new.cov[6:9, 6:9]) >= p.pose_cov_threshold)
                  | degenerate))
-    if initialized and bool(gps_ok):
+    if initialized and to_host(gps_ok, "core.gps", bool):
         sig = ps.gps_sigma
         if not p.use_gps_elevation:
             sig = _set(sig, 2, 1e3)

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 import warnings
 from typing import Optional
 
@@ -32,8 +31,9 @@ from ...ops import imu as imu_ops
 from ...ops import se3
 from ...ops.pointcloud import Cloud
 from ...ops.voxel import voxel_downsample
-from ...utils import native
+from ...utils import native, profiling
 from ...utils.io_pcd import write_pcd
+from ...utils.profiling import span, to_host
 from .loop import loop_closure_step
 from .mapping import (POINT_QUANT, RI_RANGE_SCALE, odometry_step_packed,
                       ri2_flat_len, ri_flat_width, select_window_fn)
@@ -130,15 +130,12 @@ class LioSam:
         # and the cumulative overflow-dropped cell count
         self.map_health = {"max_occupancy": 0.0, "dropped_cells": 0}
         self._overflow_warned = False
-        # host seconds per stage (pack, dispatch, flush_get, resync,
-        # loop_dispatch), summed over the run
+        # host seconds per stage, summed over the run: the stage spans'
+        # clocks (pack, dispatch, flush -> flush_get, resync, loop_attempt
+        # -> loop_dispatch), always on
         self.timings: dict = {}
         self._executor = None          # process_window_async's worker
         self._dispatch_future = None
-
-    def _acct(self, key, t0):
-        self.timings[key] = self.timings.get(key, 0.0) + (
-            time.perf_counter() - t0)
 
     # -- input assembly -----------------------------------------------------
 
@@ -336,32 +333,33 @@ class LioSam:
         StepOutput."""
         sensors = {k: v for k, v in sensors.items() if k in _SENSOR_KEYS}
         self._join_dispatch()  # never race an in-flight async window
-        t0 = time.perf_counter()
-        points, aux = self._make_input_np(xyz, ring, time_rel, scan_start,
-                                          **sensors)
-        points = torch.from_numpy(points).to(self.device)
-        aux = torch.from_numpy(aux).to(self.device)
-        self._acct("pack", t0)
-        self.state, out = odometry_step_packed(self.state, points, aux,
-                                               self.p)
-        self._last_scan_time = float(scan_start)
-        self._scan_count += 1
-        self._pending.append((scan_start, out.pose_matrix,
-                              out.map_occupancy, out.map_dropped))
+        with span("pipeline", (self._scan_count, 1)):
+            with span("pack", sink=self.timings, key="pack"):
+                points, aux = self._make_input_np(xyz, ring, time_rel,
+                                                  scan_start, **sensors)
+                with span("upload"):
+                    points = torch.from_numpy(points).to(self.device)
+                    aux = torch.from_numpy(aux).to(self.device)
+            self.state, out = odometry_step_packed(self.state, points, aux,
+                                                   self.p)
+            self._last_scan_time = float(scan_start)
+            self._scan_count += 1
+            self._pending.append((scan_start, out.pose_matrix,
+                                  out.map_occupancy, out.map_dropped))
 
-        if self._boot_scans is not None:
-            self._boot_scans.append(dict(xyz=xyz, ring=ring,
-                                         time_rel=time_rel,
-                                         scan_start=scan_start, **sensors))
-            if self._scan_count >= self._boot_n:
-                res = self._bootstrap_refeed()
-                return res if res is not None else out
+            if self._boot_scans is not None:
+                self._boot_scans.append(dict(xyz=xyz, ring=ring,
+                                             time_rel=time_rel,
+                                             scan_start=scan_start, **sensors))
+                if self._scan_count >= self._boot_n:
+                    res = self._bootstrap_refeed()
+                    return res if res is not None else out
 
-        if len(self._pending) >= self._readback_interval:
-            self._flush_pending()
-        if self.loop_enabled and self._scan_count % self._loop_every == 0:
-            self._try_loop_closure()
-        return out
+            if len(self._pending) >= self._readback_interval:
+                self._flush_pending()
+            if self.loop_enabled and self._scan_count % self._loop_every == 0:
+                self._try_loop_closure()
+            return out
 
     def process_window(self, scans):
         """Feed up to ``window`` scans from one upload.  ``scans`` is a list
@@ -373,16 +371,16 @@ class LioSam:
         that pass the state through.  Returns the StepOutput stacked on the
         window axis (padded slots echo the state)."""
         self._join_dispatch()  # never race an in-flight async window
-        t0 = time.perf_counter()
-        packed = self._pack_window(scans)
-        self._acct("pack", t0)
-        outs = self._dispatch_window(*packed)
-        if self._boot_scans is not None:
-            self._boot_scans.extend(scans)
-            if self._scan_count >= self._boot_n:
-                res = self._bootstrap_refeed()
-                return res if res is not None else outs
-        return outs
+        with span("pipeline", (self._scan_count, len(scans))):
+            with span("pack", sink=self.timings, key="pack"):
+                packed = self._pack_window(scans)
+            outs = self._dispatch_window(*packed)
+            if self._boot_scans is not None:
+                self._boot_scans.extend(scans)
+                if self._scan_count >= self._boot_n:
+                    res = self._bootstrap_refeed()
+                    return res if res is not None else outs
+            return outs
 
     def process_window_async(self, scans):
         """:meth:`process_window` pipelined: the window is packed here, on
@@ -403,20 +401,25 @@ class LioSam:
         if self._executor is None:
             self._executor = cf.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="lio-dispatch")
-        t0 = time.perf_counter()
-        packed = self._pack_window(scans)
-        self._acct("pack", t0)
-        stream = (torch.cuda.current_stream(self.device)
-                  if self.device.type == "cuda" else None)
-        fut = self._executor.submit(self._dispatch_on, stream, packed)
+        with span("pipeline", (self._scan_count, len(scans))):
+            with span("pack", sink=self.timings, key="pack"):
+                packed = self._pack_window(scans)
+            stream = (torch.cuda.current_stream(self.device)
+                      if self.device.type == "cuda" else None)
+            fut = self._executor.submit(self._dispatch_on, stream, packed,
+                                        profiling.current())
         self._dispatch_future = fut
         return fut
 
-    def _dispatch_on(self, stream, packed):
-        if stream is None:
-            return self._dispatch_window(*packed)
-        with torch.cuda.stream(stream):
-            return self._dispatch_window(*packed)
+    def _dispatch_on(self, stream, packed, parent=None):
+        """The worker's window: a ``pipeline`` span of the window's scans
+        under the span that dispatched it (`parent`)."""
+        _, times, prev_count = packed
+        with span("pipeline", (prev_count, len(times)), parent=parent):
+            if stream is None:
+                return self._dispatch_window(*packed)
+            with torch.cuda.stream(stream):
+                return self._dispatch_window(*packed)
 
     def _join_dispatch(self):
         if self._dispatch_future is not None:
@@ -428,11 +431,12 @@ class LioSam:
         entry, a flush every `readback_interval` scans, and a loop attempt
         where the window crossed a multiple of `loop_every` scans."""
         window_fn = select_window_fn(self.p, buf)
-        t0 = time.perf_counter()
-        flat = buf.to(self.device, non_blocking=True)
-        self.state, outs = window_fn(self.state, flat, self.p,
-                                     n_valid=len(times))
-        self._acct("dispatch", t0)
+        with span("dispatch", (prev_count, len(times)), sink=self.timings,
+                  key="dispatch"):
+            with span("upload"):
+                flat = buf.to(self.device, non_blocking=True)
+            self.state, outs = window_fn(self.state, flat, self.p,
+                                         n_valid=len(times))
         self._pending.append((times, outs.pose_matrix,
                               outs.map_occupancy[-1], outs.map_dropped[-1]))
         if len(self._pending) * self.window >= self._readback_interval:
@@ -453,42 +457,47 @@ class LioSam:
         self._boot_scans = None  # the re-feed must not re-trigger
         self._pending_loops.clear()
         self._resync_needed = False
-        fs = self.state.filter
-        q = fs.nav.q.double().cpu().numpy()   # wxyz
-        v = fs.nav.v.double().cpu().numpy()
-        if not (np.isfinite(q).all() and np.isfinite(v).all()
-                and np.linalg.norm(v) < 1e3):
-            return None  # keep the first pass; nothing sane to re-feed with
-        v_b = Rs.from_quat([q[1], q[2], q[3], q[0]]).inv().apply(v)
-        self._init_vel = v_b.astype(np.float32)
+        with span("boot_refeed", (0, len(scans))):
+            fs = self.state.filter
+            q = to_host(fs.nav.q.double(),
+                        "pipeline.boot_attitude").numpy()   # wxyz
+            v = to_host(fs.nav.v.double(), "pipeline.boot_velocity").numpy()
+            if not (np.isfinite(q).all() and np.isfinite(v).all()
+                    and np.linalg.norm(v) < 1e3):
+                return None  # keep the first pass; nothing sane to re-feed
+            v_b = Rs.from_quat([q[1], q[2], q[3], q[0]]).inv().apply(v)
+            self._init_vel = v_b.astype(np.float32)
 
-        self.state = init_state(self.p, self.device)
-        self._trajectory = Trajectory([], [])
-        self._pending.clear()
-        self._scan_count = 0
-        self._last_scan_time = None
-        out = None
-        if self.window > 1:
-            for i in range(0, len(scans), self.window):
-                out = self.process_window(scans[i:i + self.window])
-        else:
-            for s in scans:
-                kw = {k: val for k, val in s.items()
-                      if k not in ("xyz", "ring", "time_rel", "scan_start")}
-                out = self.process_scan(s["xyz"], s["ring"], s["time_rel"],
-                                        s["scan_start"], **kw)
-        return out
+            self.state = init_state(self.p, self.device)
+            self._trajectory = Trajectory([], [])
+            self._pending.clear()
+            self._scan_count = 0
+            self._last_scan_time = None
+            out = None
+            if self.window > 1:
+                for i in range(0, len(scans), self.window):
+                    out = self.process_window(scans[i:i + self.window])
+            else:
+                for s in scans:
+                    kw = {k: val for k, val in s.items()
+                          if k not in ("xyz", "ring", "time_rel",
+                                       "scan_start")}
+                    out = self.process_scan(s["xyz"], s["ring"],
+                                            s["time_rel"], s["scan_start"],
+                                            **kw)
+            return out
 
     def _try_loop_closure(self, t_cur=None):
         """One loop-closure attempt, unless the host pre-gate rules it out.
         Its `found` flag is read at the next flush, where a closed loop
         marks the trajectory for a resync.  `t_cur`: the stamp of the last
         scan stepped (default: the last packed)."""
-        if not self._loop_plausible(t_cur):
+        with span("loop_gate"):
+            plausible = self._loop_plausible(t_cur)
+        if not plausible:
             return
-        t0 = time.perf_counter()
-        self.state, loop = loop_closure_step(self.state, self.p)
-        self._acct("loop_dispatch", t0)
+        self.state, loop = loop_closure_step(self.state, self.p,
+                                             timings=self.timings)
         self._pending_loops.append(loop.found)
 
     def _loop_plausible(self, t_cur=None) -> bool:
@@ -529,25 +538,32 @@ class LioSam:
         each, then check for divergence (reinitialize on a non-finite
         pose)."""
         loops, self._pending_loops = self._pending_loops, []
-        t0 = time.perf_counter()
-        if loops and bool(torch.stack(loops).any()):
-            self._resync_needed = True
-        if not self._pending:
-            self._acct("flush_get", t0)
-            return
-        pending, self._pending = self._pending, []
-        times, blocks = [], []
-        for t, m, _, _ in pending:
-            if isinstance(t, list):   # a window: its padded rows drop below
-                times.extend(t)
-                blocks.append(m)
-            else:
-                times.append(t)
-                blocks.append(m[None])
-        mats_all = torch.cat(blocks).cpu().numpy()
-        occ = torch.stack([o for _, _, o, _ in pending]).cpu().numpy()
-        drop = torch.stack([d for _, _, _, d in pending]).cpu().numpy()
-        self._acct("flush_get", t0)
+        scans = None
+        if profiling.recording() and profiling.current() is None:
+            # a flush of the caller's (trajectory, flush): the pending scans
+            n = sum(len(t) if isinstance(t, list) else 1
+                    for t, *_ in self._pending)
+            scans = (self._scan_count - n, n)
+        with span("flush", scans, sink=self.timings, key="flush_get"):
+            if loops and to_host(torch.stack(loops).any(),
+                                 "pipeline.loop_found", bool):
+                self._resync_needed = True
+            if not self._pending:
+                return
+            pending, self._pending = self._pending, []
+            times, blocks = [], []
+            for t, m, _, _ in pending:
+                if isinstance(t, list):   # a window: padded rows drop below
+                    times.extend(t)
+                    blocks.append(m)
+                else:
+                    times.append(t)
+                    blocks.append(m[None])
+            mats_all = to_host(torch.cat(blocks), "pipeline.flush").numpy()
+            occ = to_host(torch.stack([o for _, _, o, _ in pending]),
+                          "pipeline.flush_occupancy").numpy()
+            drop = to_host(torch.stack([d for _, _, _, d in pending]),
+                           "pipeline.flush_dropped").numpy()
         rows, off = [], 0
         for (t, *_), m in zip(pending, blocks):
             rows.append(mats_all[off:off + (len(t) if isinstance(t, list)
@@ -572,29 +588,32 @@ class LioSam:
     def _resync_trajectory(self):
         """Rewrite the recorded poses of the keyframe scans from the
         optimized keyframe store (copied to the host once)."""
-        t0 = time.perf_counter()
-        self._resync_needed = False
-        kf = self.state.kf
-        n = int(kf.count)
-        if n == 0 or not self._trajectory.times:
-            return
-        mats = se3.Pose.from_vec6(kf.pose6[:n].cpu()).to_matrix().numpy()
-        # keyframe times are float32 offsets from the epoch, trajectory times
-        # absolute float64: match the nearest within half a 10 Hz period
-        times = kf.time[:n].cpu().numpy().astype(np.float64) + (
-            self._epoch or 0.0)
-        traj_t = np.asarray(self._trajectory.times, np.float64)
-        order = np.argsort(traj_t, kind="stable")
-        sorted_t = traj_t[order]
-        hi = np.searchsorted(sorted_t, times)
-        for t, m, j in zip(times, mats, hi):
-            best, best_dt = -1, 0.02
-            for k in (j - 1, j):
-                if 0 <= k < len(sorted_t) and abs(sorted_t[k] - t) < best_dt:
-                    best, best_dt = int(order[k]), abs(sorted_t[k] - t)
-            if best >= 0:
-                self._trajectory.poses[best] = m
-        self._acct("resync", t0)
+        with span("resync", (0, self._scan_count), sink=self.timings,
+                  key="resync"):
+            self._resync_needed = False
+            kf = self.state.kf
+            n = to_host(kf.count, "pipeline.resync_count", int)
+            if n == 0 or not self._trajectory.times:
+                return
+            mats = se3.Pose.from_vec6(to_host(
+                kf.pose6[:n], "pipeline.resync_poses")).to_matrix().numpy()
+            # keyframe times are float32 offsets from the epoch, trajectory
+            # times absolute float64: match the nearest within half a 10 Hz
+            # period
+            times = to_host(kf.time[:n], "pipeline.resync_times").numpy(
+            ).astype(np.float64) + (self._epoch or 0.0)
+            traj_t = np.asarray(self._trajectory.times, np.float64)
+            order = np.argsort(traj_t, kind="stable")
+            sorted_t = traj_t[order]
+            hi = np.searchsorted(sorted_t, times)
+            for t, m, j in zip(times, mats, hi):
+                best, best_dt = -1, 0.02
+                for k in (j - 1, j):
+                    if (0 <= k < len(sorted_t)
+                            and abs(sorted_t[k] - t) < best_dt):
+                        best, best_dt = int(order[k]), abs(sorted_t[k] - t)
+                if best >= 0:
+                    self._trajectory.poses[best] = m
 
     def _update_map_health(self, occ, drop):
         """Fold flushed telemetry into map_health; warn once on saturation
@@ -635,12 +654,17 @@ class LioSam:
         voxel-downsampled to `resolution` when it is > 0, on the device)."""
         self.flush()
         kf = self.state.kf
-        n = int(kf.count)
-        pose6 = kf.pose6[:n].cpu().numpy()
-        cx, cm = kf.corner_xyz[:n].cpu().numpy(), kf.corner_mask[:n].cpu().numpy()
-        sx, sm = kf.surf_xyz[:n].cpu().numpy(), kf.surf_mask[:n].cpu().numpy()
+        n = to_host(kf.count, "export.count", int)
+
+        def host(x, what):
+            return to_host(x[:n], "export." + what).numpy()
+
+        pose6 = host(kf.pose6, "poses")
+        cx, cm = host(kf.corner_xyz, "corner"), host(kf.corner_mask,
+                                                      "corner_mask")
+        sx, sm = host(kf.surf_xyz, "surf"), host(kf.surf_mask, "surf_mask")
         out = {"trajectory": pose6,
-               "times": kf.time[:n].cpu().numpy().astype(np.float64)
+               "times": host(kf.time, "times").astype(np.float64)
                + (self._epoch or 0.0)}
         # in float64, as msst_tpu rotates them, so that the PCDs match
         R = se3.rpy_to_matrix(torch.from_numpy(pose6).double()[:, :3])
@@ -659,7 +683,7 @@ class LioSam:
                     c = voxel_downsample(Cloud.create(
                         torch.from_numpy(np.ascontiguousarray(pts)).to(
                             self.device)), resolution)
-                    pts = c.xyz[c.mask].cpu().numpy()
+                    pts = to_host(c.xyz[c.mask], "export.map").numpy()
                 write_pcd(os.path.join(directory, f"{name}.pcd"), pts)
             write_pcd(os.path.join(directory, "global_map.pcd"),
                       np.concatenate([out["corner_map"], out["surf_map"]]))
@@ -690,4 +714,5 @@ class LioSam:
             dev(np.pad(a, ((0, pad), (0, 0)))), dev(np.arange(T) < k),
             fs.bias, self.p.imu_params)
         nav = imu_ops.predict(fs.nav, pre, fs.bias, fs.bias, self.p.imu_params)
-        return se3.Pose(nav.q, nav.p), nav.v.cpu().numpy()
+        return se3.Pose(nav.q, nav.p), to_host(nav.v,
+                                               "imu_rate.velocity").numpy()

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import jacfwd, vmap
 
+from ..utils import profiling
 from . import segments, se3
 from .se3 import Pose
 
@@ -206,17 +207,19 @@ def optimize(graph: PoseGraph, free_mask: Optional[Tensor] = None,
     if free_mask is None:
         free_mask = graph.pose_mask
     K = graph.capacity
-    diag_mask = torch.repeat_interleave(free_mask & graph.pose_mask, 6)
-    scatters = _dense_scatters(graph)
-    for _ in range(iters):
-        H, g = _assemble_dense(graph, free_mask, scatters)
-        # inactive/fixed pose blocks: identity rows keep Cholesky PD
-        H = H + torch.diag(torch.where(diag_mask, damping, 1.0))
-        g = g * diag_mask
-        L, _ = torch.linalg.cholesky_ex(H)
-        dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
-        dx = (dx * diag_mask).reshape(K, 6)
-        graph = graph._replace(poses=se3.pose_retract(graph.poses, dx))
+    with profiling.span("graph_solve", solver="dense", poses=K):
+        profiling.count("graph_solves")
+        diag_mask = torch.repeat_interleave(free_mask & graph.pose_mask, 6)
+        scatters = _dense_scatters(graph)
+        for _ in range(iters):
+            H, g = _assemble_dense(graph, free_mask, scatters)
+            # inactive/fixed pose blocks: identity rows keep Cholesky PD
+            H = H + torch.diag(torch.where(diag_mask, damping, 1.0))
+            g = g * diag_mask
+            L, _ = torch.linalg.cholesky_ex(H)
+            dx = torch.cholesky_solve(-g[:, None], L)[:, 0]
+            dx = (dx * diag_mask).reshape(K, 6)
+            graph = graph._replace(poses=se3.pose_retract(graph.poses, dx))
     return graph
 
 
@@ -235,69 +238,72 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
     if free_mask is None:
         free_mask = graph.pose_mask
     K = graph.capacity
-    dev = graph.pose_mask.device
-    pf, bf, gf = graph.priors, graph.betweens, graph.gps
-    pi, bi, bj, gi = (pf.idx.long(), bf.i.long(), bf.j.long(),
-                      gf.idx.long())
-    free = (free_mask & graph.pose_mask).to(torch.float32)
-    eye6 = torch.eye(6, device=dev)
-    # the terms of a pose add in the order prior, between i, between j, GPS
-    to_pose = _fixed_scatter(torch.cat([pi, bi, bj, gi]), K)
+    with profiling.span("graph_solve", solver="cg", poses=K):
+        profiling.count("graph_solves")
+        dev = graph.pose_mask.device
+        pf, bf, gf = graph.priors, graph.betweens, graph.gps
+        pi, bi, bj, gi = (pf.idx.long(), bf.i.long(), bf.j.long(),
+                          gf.idx.long())
+        free = (free_mask & graph.pose_mask).to(torch.float32)
+        eye6 = torch.eye(6, device=dev)
+        # the terms of a pose add in the order prior, between i, between j, GPS
+        to_pose = _fixed_scatter(torch.cat([pi, bi, bj, gi]), K)
 
-    def scatter(*terms):
-        return to_pose(torch.cat(terms))
+        def scatter(*terms):
+            return to_pose(torch.cat(terms))
 
-    for _ in range(iters):
-        rp, Jp = _prior_terms(graph.poses, pf)
-        rb, Ji, Jj = _between_terms(graph.poses, bf)
-        rg, Jg = _gps_terms(graph.poses, gf)
-        Jp = Jp * free[pi][:, None, None]
-        Ji = Ji * free[bi][:, None, None]
-        Jj = Jj * free[bj][:, None, None]
-        Jg = Jg * free[gi][:, None, None]
+        for _ in range(iters):
+            rp, Jp = _prior_terms(graph.poses, pf)
+            rb, Ji, Jj = _between_terms(graph.poses, bf)
+            rg, Jg = _gps_terms(graph.poses, gf)
+            Jp = Jp * free[pi][:, None, None]
+            Ji = Ji * free[bi][:, None, None]
+            Jj = Jj * free[bj][:, None, None]
+            Jg = Jg * free[gi][:, None, None]
 
-        def matvec(x):                      # x: (K, 6)
-            vp = torch.einsum("nri,ni->nr", Jp, x[pi])
-            # betweens, cross blocks included
-            vb = (torch.einsum("nri,ni->nr", Ji, x[bi])
-                  + torch.einsum("nri,ni->nr", Jj, x[bj]))
-            vg = torch.einsum("nri,ni->nr", Jg, x[gi])
-            return scatter(torch.einsum("nri,nr->ni", Jp, vp),
-                           torch.einsum("nri,nr->ni", Ji, vb),
-                           torch.einsum("nri,nr->ni", Jj, vb),
-                           torch.einsum("nri,nr->ni", Jg, vg)) + damping * x
+            def matvec(x):                      # x: (K, 6)
+                vp = torch.einsum("nri,ni->nr", Jp, x[pi])
+                # betweens, cross blocks included
+                vb = (torch.einsum("nri,ni->nr", Ji, x[bi])
+                      + torch.einsum("nri,ni->nr", Jj, x[bj]))
+                vg = torch.einsum("nri,ni->nr", Jg, x[gi])
+                return scatter(torch.einsum("nri,nr->ni", Jp, vp),
+                               torch.einsum("nri,nr->ni", Ji, vb),
+                               torch.einsum("nri,nr->ni", Jj, vb),
+                               torch.einsum("nri,nr->ni", Jg, vg)
+                               ) + damping * x
 
-        g = scatter(torch.einsum("nri,nr->ni", Jp, rp),
-                    torch.einsum("nri,nr->ni", Ji, rb),
-                    torch.einsum("nri,nr->ni", Jj, rb),
-                    torch.einsum("nri,nr->ni", Jg, rg))
+            g = scatter(torch.einsum("nri,nr->ni", Jp, rp),
+                        torch.einsum("nri,nr->ni", Ji, rb),
+                        torch.einsum("nri,nr->ni", Jj, rb),
+                        torch.einsum("nri,nr->ni", Jg, rg))
 
-        # block-Jacobi preconditioner
-        D = scatter(torch.einsum("nri,nrj->nij", Jp, Jp),
-                    torch.einsum("nri,nrj->nij", Ji, Ji),
-                    torch.einsum("nri,nrj->nij", Jj, Jj),
-                    torch.einsum("nri,nrj->nij", Jg, Jg))
-        Dinv = torch.linalg.inv(D + (damping + 1e-6) * eye6)
+            # block-Jacobi preconditioner
+            D = scatter(torch.einsum("nri,nrj->nij", Jp, Jp),
+                        torch.einsum("nri,nrj->nij", Ji, Ji),
+                        torch.einsum("nri,nrj->nij", Jj, Jj),
+                        torch.einsum("nri,nrj->nij", Jg, Jg))
+            Dinv = torch.linalg.inv(D + (damping + 1e-6) * eye6)
 
-        def precond(x):
-            return torch.einsum("nij,nj->ni", Dinv, x)
+            def precond(x):
+                return torch.einsum("nij,nj->ni", Dinv, x)
 
-        x = torch.zeros((K, 6), device=dev)
-        r = -g
-        z = precond(r)
-        pdir = z
-        rz = torch.sum(r * z)
-        for _ in range(cg_iters):
-            Ap = matvec(pdir)
-            alpha = rz / torch.clamp(torch.sum(pdir * Ap), min=1e-12)
-            x = x + alpha * pdir
-            r = r - alpha * Ap
+            x = torch.zeros((K, 6), device=dev)
+            r = -g
             z = precond(r)
-            rz_new = torch.sum(r * z)
-            pdir = z + rz_new / torch.clamp(rz, min=1e-12) * pdir
-            rz = rz_new
-        graph = graph._replace(
-            poses=se3.pose_retract(graph.poses, x * free[:, None]))
+            pdir = z
+            rz = torch.sum(r * z)
+            for _ in range(cg_iters):
+                Ap = matvec(pdir)
+                alpha = rz / torch.clamp(torch.sum(pdir * Ap), min=1e-12)
+                x = x + alpha * pdir
+                r = r - alpha * Ap
+                z = precond(r)
+                rz_new = torch.sum(r * z)
+                pdir = z + rz_new / torch.clamp(rz, min=1e-12) * pdir
+                rz = rz_new
+            graph = graph._replace(
+                poses=se3.pose_retract(graph.poses, x * free[:, None]))
     return graph
 
 

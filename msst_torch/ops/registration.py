@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import to_host
 from . import knn, linalg, se3, segments, voxel, voxelmap
 
 Tensor = torch.Tensor
@@ -56,6 +58,7 @@ class ScanToMapResult(NamedTuple):
     lookups: int = 0    # voxel-map lookups taken (host count; 0 on 5-NN)
 
 
+@profiling.traced("s2m")
 def scan_to_map_voxel(
     corner_scan: Tensor, corner_mask: Tensor,
     surf_scan: Tensor, surf_mask: Tensor,
@@ -83,7 +86,8 @@ def scan_to_map_voxel(
 
     The loop runs on the host: each iteration reads one small flag tensor
     (stop? and re-associate next?) back from the device, a known cost that
-    a later kernel fusing the iteration removes."""
+    a later kernel fusing the iteration removes.  Each iteration is a
+    ``gn_iter`` span up to that read."""
     Qc = corner_scan.shape[0]
     dev = init_pose.device
     pts = torch.cat([corner_scan, surf_scan])
@@ -104,65 +108,72 @@ def scan_to_map_voxel(
     need = True
     it = lookups = 0
     while it < max_iters:
-        R, dRr, dRp, dRy = _rot_and_derivs(pose[:3])
-        w = pts @ R.T + pose[3:]
-        if need or not freeze:
-            hit = voxelmap.lookup_cat(corner_vmap, surf_vmap, w, pmask, Qc)
-            pose_ref = pose
-            lookups += 1
+        relook = need or not freeze
+        with profiling.span("gn_iter", iteration=it, relookup=relook):
+            R, dRr, dRp, dRy = _rot_and_derivs(pose[:3])
+            w = pts @ R.T + pose[3:]
+            if relook:
+                hit = voxelmap.lookup_cat(corner_vmap, surf_vmap, w, pmask,
+                                          Qc)
+                pose_ref = pose
+                lookups += 1
 
-        dnorm = torch.linalg.norm(hit.direction, dim=1)
-        hit_is_line = dnorm < voxelmap.LINE_DIR_GATE
-        v = hit.direction / torch.clamp(dnorm, min=1e-9)[:, None]
-        use_line = is_c | hit_is_line
-        delta = w - hit.mean
-        along = torch.sum(delta * v, dim=1, keepdim=True)
-        perp = delta - along * v
-        rl = torch.linalg.norm(perp, dim=1)
-        gradl = perp / torch.clamp(rl, min=1e-9)[:, None]
-        rp = torch.sum(w * v, dim=1) + hit.d
-        r = torch.where(use_line, rl, rp)
-        n = torch.where(use_line[:, None], gradl, v)
-        s = torch.where(is_c, 1.0 - 0.9 * torch.abs(r),
-                        1.0 - 0.9 * torch.abs(r) / s_div)
-        m = pmask & hit.found & (s > 0.1)
-        s = torch.where(hit_is_line & ~is_c, ARC_LINE_WEIGHT * s, s)
-        nw = n * s[:, None]
-        jr = torch.stack([torch.sum(nw * (pts @ dR.T), dim=1)
-                          for dR in (dRr, dRp, dRy)], dim=1)
-        mf = m.to(pts.dtype)
-        J = torch.cat([jr, nw], dim=1) * mf[:, None]
-        rr = s * r * mf
-        H = J.T @ J
-        g = J.T @ rr
-        n_sel = torch.sum(m.to(torch.int32))
-        cost = (rr @ rr) / torch.clamp(n_sel, min=1)
-        dx = -linalg.solve_psd(H, g, damping=1e-6)
-        if it == 0:
-            vals, vecs = torch.linalg.eigh(H)
-            good = (vals >= eig_threshold).to(H.dtype)
-            P = (vecs * good[None, :]) @ vecs.T
-            degenerate = torch.any(vals < eig_threshold)
-        dx = P @ dx
-        enough = n_sel >= min_points
-        dx = torch.where(enough, dx, 0.0)
-        delta_r = torch.sqrt(torch.sum(torch.rad2deg(dx[:3]) ** 2))
-        delta_t = torch.sqrt(torch.sum((dx[3:] * 100.0) ** 2))
-        converged = (delta_r < 0.05) & (delta_t < 0.05)
-        pose = pose + dx
-        plateau = (it >= plateau_min_iters) & (prev_cost - cost
-                                               < plateau_rtol * cost)
-        done = converged | ~enough | plateau
-        prev_cost = cost
-        nc = torch.sum((m & is_c).to(torch.int32))
-        ns = torch.sum((m & ~is_c).to(torch.int32))
-        it += 1
-        moved = ((torch.max(torch.abs(pose[:3] - pose_ref[:3])) > reassoc_rot)
-                 | (torch.max(torch.abs(pose[3:] - pose_ref[3:]))
-                    > reassoc_trans))
-        stop, need = torch.stack([done, moved]).tolist()
+            dnorm = torch.linalg.norm(hit.direction, dim=1)
+            hit_is_line = dnorm < voxelmap.LINE_DIR_GATE
+            v = hit.direction / torch.clamp(dnorm, min=1e-9)[:, None]
+            use_line = is_c | hit_is_line
+            delta = w - hit.mean
+            along = torch.sum(delta * v, dim=1, keepdim=True)
+            perp = delta - along * v
+            rl = torch.linalg.norm(perp, dim=1)
+            gradl = perp / torch.clamp(rl, min=1e-9)[:, None]
+            rp = torch.sum(w * v, dim=1) + hit.d
+            r = torch.where(use_line, rl, rp)
+            n = torch.where(use_line[:, None], gradl, v)
+            s = torch.where(is_c, 1.0 - 0.9 * torch.abs(r),
+                            1.0 - 0.9 * torch.abs(r) / s_div)
+            m = pmask & hit.found & (s > 0.1)
+            s = torch.where(hit_is_line & ~is_c, ARC_LINE_WEIGHT * s, s)
+            nw = n * s[:, None]
+            jr = torch.stack([torch.sum(nw * (pts @ dR.T), dim=1)
+                              for dR in (dRr, dRp, dRy)], dim=1)
+            mf = m.to(pts.dtype)
+            J = torch.cat([jr, nw], dim=1) * mf[:, None]
+            rr = s * r * mf
+            H = J.T @ J
+            g = J.T @ rr
+            n_sel = torch.sum(m.to(torch.int32))
+            cost = (rr @ rr) / torch.clamp(n_sel, min=1)
+            dx = -linalg.solve_psd(H, g, damping=1e-6)
+            if it == 0:
+                vals, vecs = torch.linalg.eigh(H)
+                good = (vals >= eig_threshold).to(H.dtype)
+                P = (vecs * good[None, :]) @ vecs.T
+                degenerate = torch.any(vals < eig_threshold)
+            dx = P @ dx
+            enough = n_sel >= min_points
+            dx = torch.where(enough, dx, 0.0)
+            delta_r = torch.sqrt(torch.sum(torch.rad2deg(dx[:3]) ** 2))
+            delta_t = torch.sqrt(torch.sum((dx[3:] * 100.0) ** 2))
+            converged = (delta_r < 0.05) & (delta_t < 0.05)
+            pose = pose + dx
+            plateau = (it >= plateau_min_iters) & (prev_cost - cost
+                                                   < plateau_rtol * cost)
+            done = converged | ~enough | plateau
+            prev_cost = cost
+            nc = torch.sum((m & is_c).to(torch.int32))
+            ns = torch.sum((m & ~is_c).to(torch.int32))
+            it += 1
+            moved = ((torch.max(torch.abs(pose[:3] - pose_ref[:3]))
+                      > reassoc_rot)
+                     | (torch.max(torch.abs(pose[3:] - pose_ref[3:]))
+                        > reassoc_trans))
+            stop, need = to_host(torch.stack([done, moved]), "s2m.stop_flag",
+                                 Tensor.tolist)
         if stop:
             break
+    profiling.count("gn_iters", it)
+    profiling.count("b1_lookups", lookups)
     return ScanToMapResult(pose, degenerate, done,
                            torch.tensor(it, dtype=torch.int32, device=dev),
                            nc, ns, lookups)
@@ -246,6 +257,7 @@ def _surf_from_knn(res: knn.KnnResult, p_world: Tensor, p_scan: Tensor,
     return n * s[:, None], s * pd, keep
 
 
+@profiling.traced("s2m")
 def scan_to_map(
     corner_scan: Tensor, corner_mask: Tensor,
     surf_scan: Tensor, surf_mask: Tensor,
@@ -283,40 +295,43 @@ def scan_to_map(
 
     it = 0
     while it < max_iters:
-        R, *dRs = _rot_and_derivs(pose[:3])
-        w = scan_pts @ R.T + pose[3:]
-        res = knn.query_cat(corner_grid, surf_grid, w, scan_mask, Qc, k=5,
-                            candidates_per_cell=candidates_per_cell)
-        cn, cd, cm = _corner_from_knn(
-            knn.KnnResult(*(f[:Qc] for f in res)), w[:Qc], corner_mask,
-            corner_map_xyz)
-        sn, sd, sm = _surf_from_knn(
-            knn.KnnResult(*(f[Qc:] for f in res)), w[Qc:], surf_scan,
-            surf_mask, surf_map_xyz)
-        cmf, smf = cm.to(pose.dtype), sm.to(pose.dtype)
-        Jc = jac(cn, corner_scan, cmf, dRs)
-        Js = jac(sn, surf_scan, smf, dRs)
-        H = Jc.T @ Jc + Js.T @ Js
-        g = Jc.T @ (cd * cmf) + Js.T @ (sd * smf)
-        nc = torch.sum(cm.to(torch.int32))
-        ns = torch.sum(sm.to(torch.int32))
-        dx = -linalg.solve_psd(H, g, damping=1e-6)
-        if it == 0:
-            # degeneracy analysis on the first iteration (:1232-1252)
-            vals, vecs = torch.linalg.eigh(H)
-            good = (vals >= eig_threshold).to(H.dtype)
-            P = (vecs * good[None, :]) @ vecs.T
-            degenerate = torch.any(vals < eig_threshold)
-        dx = P @ dx
-        enough = (nc + ns) >= min_points
-        dx = torch.where(enough, dx, 0.0)
-        delta_r = torch.sqrt(torch.sum(torch.rad2deg(dx[:3]) ** 2))
-        delta_t = torch.sqrt(torch.sum((dx[3:] * 100.0) ** 2))
-        pose = pose + dx
-        done = ((delta_r < 0.05) & (delta_t < 0.05)) | ~enough
-        it += 1
-        if bool(done):
+        with profiling.span("gn_iter", iteration=it, relookup=True):
+            R, *dRs = _rot_and_derivs(pose[:3])
+            w = scan_pts @ R.T + pose[3:]
+            res = knn.query_cat(corner_grid, surf_grid, w, scan_mask, Qc, k=5,
+                                candidates_per_cell=candidates_per_cell)
+            cn, cd, cm = _corner_from_knn(
+                knn.KnnResult(*(f[:Qc] for f in res)), w[:Qc], corner_mask,
+                corner_map_xyz)
+            sn, sd, sm = _surf_from_knn(
+                knn.KnnResult(*(f[Qc:] for f in res)), w[Qc:], surf_scan,
+                surf_mask, surf_map_xyz)
+            cmf, smf = cm.to(pose.dtype), sm.to(pose.dtype)
+            Jc = jac(cn, corner_scan, cmf, dRs)
+            Js = jac(sn, surf_scan, smf, dRs)
+            H = Jc.T @ Jc + Js.T @ Js
+            g = Jc.T @ (cd * cmf) + Js.T @ (sd * smf)
+            nc = torch.sum(cm.to(torch.int32))
+            ns = torch.sum(sm.to(torch.int32))
+            dx = -linalg.solve_psd(H, g, damping=1e-6)
+            if it == 0:
+                # degeneracy analysis on the first iteration (:1232-1252)
+                vals, vecs = torch.linalg.eigh(H)
+                good = (vals >= eig_threshold).to(H.dtype)
+                P = (vecs * good[None, :]) @ vecs.T
+                degenerate = torch.any(vals < eig_threshold)
+            dx = P @ dx
+            enough = (nc + ns) >= min_points
+            dx = torch.where(enough, dx, 0.0)
+            delta_r = torch.sqrt(torch.sum(torch.rad2deg(dx[:3]) ** 2))
+            delta_t = torch.sqrt(torch.sum((dx[3:] * 100.0) ** 2))
+            pose = pose + dx
+            done = ((delta_r < 0.05) & (delta_t < 0.05)) | ~enough
+            it += 1
+            stop = to_host(done, "s2m.stop_flag", bool)
+        if stop:
             break
+    profiling.count("gn_iters", it)
     return ScanToMapResult(pose, degenerate, done,
                            torch.tensor(it, dtype=torch.int32, device=dev),
                            nc, ns)
@@ -424,8 +439,10 @@ def _icp_run(src_xyz, src_mask, nn1, tgt_xyz, init_pose, max_iters,
             0.5 * (torch.trace(R) - 1.0) > 1.0 - transformation_eps)
         mse_stop = (mse < abs_mse_eps) | (
             torch.abs(prev_mse - mse) < rel_mse_eps * prev_mse)
-        if it >= max_iters or bool(similar | mse_stop | (nmatch <= 0)):
+        if it >= max_iters or to_host(similar | mse_stop | (nmatch <= 0),
+                                      "icp.stop", bool):
             break
+    profiling.count("icp_iters", it)
 
     moved = pose.apply(src_xyz)
     res = nn1(moved, min(fitness_max_dist ** 2, 1e18))
@@ -570,7 +587,7 @@ def gicp(src_xyz: Tensor, src_mask: Tensor, src_cov: Tensor,
         pose, delta = _gn_pose_update(moved, moved - tgt_xyz[j], M,
                                       ok.to(src_xyz.dtype), pose, 1e-6, 1.0)
         it += 1
-        if not bool(delta > transformation_eps):
+        if not to_host(delta > transformation_eps, "gicp.stop", bool):
             break
 
     moved = pose.apply(src_xyz)
@@ -684,7 +701,7 @@ def ndt(src_xyz: Tensor, src_mask: Tensor, ndt_map: NdtMap,
                                       ok.to(src_xyz.dtype), pose, 1e-4,
                                       step_size)
         it += 1
-        if not bool(delta > transformation_eps):
+        if not to_host(delta > transformation_eps, "ndt.stop", bool):
             break
 
     moved = pose.apply(src_xyz)

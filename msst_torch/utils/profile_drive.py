@@ -16,11 +16,13 @@ one card (the loop cell four times):
 
 A. unchanged: scans/s and per-scan p50/p99 with the pose read to the host,
    steady state (after the boot window and its re-feed);
-B. with a ``torch.cuda.synchronize()`` before and after each layer's entry
-   point (the spans nest: a child's time is part of its parent's), giving
-   ms per scan and calls per scan for every span; a span entered inside a
-   loop attempt is keyed ``loop/<span>``, and the loop cell records each
-   attempt (candidates tried, coarse ICP iterations, found);
+B. under ``profiling.tracing()``: the program's own spans (the spans nest:
+   a child's time is part of its parent's), giving per scan the calls and
+   the host and device ms of every span, each with its self time (the
+   device's from the spans' CUDA-event intervals, with no synchronisation
+   added); a span inside a loop attempt is keyed ``loop/<span>``, the host
+   reads are counted by site, and the loop cell records each attempt
+   (the ``loop_attempt`` span's args and device ms);
 C. ``torch.profiler`` over 40 steady scans (the loop cell: the last 40,
    which hold its attempts with candidates): device kernel time per scan
    (the busy share of run A's mean step), and launches, synchronisations
@@ -29,10 +31,10 @@ D. the loop cell only: ``torch.profiler`` around each loop attempt alone:
    its wall and device time, kernel launches, host synchronisations and
    copies, and the device time of the 3x3 SVDs (cuSOLVER) in it.
 
-The spans, and the attempt records of runs B and D (``watched_attempts``,
-which chip_smoke.py's loop phases use too), are put on by replacing module
-attributes while the run lasts; the port's code is not changed and runs A
-and C are not instrumented.  One
+The attempt records of run D (``watched_attempts``, which chip_smoke.py's
+loop phases use too) are put on by replacing a module attribute while the
+run lasts; run A records nothing, run C the program's spans as every
+profiled run does.  One
 JSON object per cell is printed, and written to DIR with --out.  Needs a
 CUDA device.
 """
@@ -50,53 +52,14 @@ from contextlib import contextmanager, nullcontext
 import numpy as np
 import torch
 
-from ..models.liosam import LioSam, imu_fusion, loop, mapping, pipeline
+from ..models.liosam import LioSam, pipeline
 from ..models.liosam.params import LioParams
-from ..ops import gather, knn, linalg, registration, voxel, voxelmap
-from ..ops import imu as imu_ops
-from . import sim
+from . import profiling, sim
 
 BOOT_SCANS = 64
 N_SCAN, HORIZON = 16, 1800
 N_PROFILED = 40
 LOOP_SCANS, LOOP_SEED = 340, 8   # bench.py's loop-on phase
-
-# (module, attribute): spans of run B, parents before children
-SPANS = [
-    (pipeline, "odometry_step_packed"),
-    (mapping, "prepare_scan"),
-    (mapping, "run_frontend"),
-    (imu_ops, "preintegrate"),
-    (imu_fusion, "propagate"),
-    (registration, "scan_to_map_voxel"),
-    (registration, "scan_to_map"),
-    (voxelmap, "lookup_cat"),
-    (knn, "query_cat"),
-    (knn, "query"),
-    (linalg, "sym3x3_eigh"),
-    (imu_fusion, "update_with_pose"),
-    (mapping, "_insert_keyframe"),
-    (mapping, "_rebuild_local_map"),
-    (voxel, "voxel_downsample_packed"),
-    (knn, "build"),
-    (voxelmap, "build"),
-    # the loop attempt, by stage
-    (pipeline, "loop_closure_step"),
-    (loop, "_loop_candidates"),
-    (loop, "_kf_class_clouds"),
-    (loop, "_submap_class_clouds"),
-    (loop, "_coarsen"),
-    (registration, "icp_point2point_brute"),
-    (loop, "_p2p_fitness"),
-    (registration, "icp_curvature_brute"),
-    (knn, "nearest1_brute"),
-    (linalg, "weighted_kabsch"),
-    (gather, "gather_rows"),
-    (mapping, "_graph_optimize"),
-    (mapping, "_rebake_local_map"),
-]
-LOOP_ENTRY = "pipeline.loop_closure_step"
-
 
 def _params(cell: str) -> LioParams:
     return LioParams(n_scan=N_SCAN, horizon_scan=HORIZON,
@@ -110,47 +73,6 @@ def _feed(lio, s):
                             s["scan_start"], imu_t=s["imu_t"],
                             imu_gyro=s["imu_gyro"], imu_acc=s["imu_acc"],
                             imu_rpy=s["imu_rpy"])
-
-
-@contextmanager
-def _synced_spans(totals: dict):
-    """Replace every span's entry point by a version that synchronises the
-    device before and after and adds its time and one call to `totals`."""
-    saved = []
-    inside = []   # the loop attempt being run, if any
-
-    for mod, name in SPANS:
-        fn = getattr(mod, name)
-        key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
-
-        def timed(*args, _fn=fn, _key=key, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if _key == LOOP_ENTRY:
-                inside.append(True)
-            try:
-                out = _fn(*args, **kwargs)
-            finally:
-                if _key == LOOP_ENTRY:
-                    inside.pop()
-            torch.cuda.synchronize()
-            ms = 1000.0 * (time.perf_counter() - t0)
-            full = f"loop/{_key}" if inside and _key != LOOP_ENTRY else _key
-            rec = totals.setdefault(full, [0.0, 0])
-            rec[0] += ms
-            rec[1] += 1
-            return out
-
-        # the wrappers of the kernels count their launches on the module
-        # attribute, which is now this function
-        timed.launches = getattr(fn, "launches", 0)
-        saved.append((mod, name, fn))
-        setattr(mod, name, timed)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def _device_events(prof):
@@ -248,10 +170,9 @@ def counted_calls(targets):
             setattr(mod, name, fn)
 
 
-def _drive(cell, data, totals=None, attempts=None, profiled=None,
-           attempt_records=None):
-    """One drive; per-scan ms of the steady scans.  `totals` turns the
-    synced spans on for the steady scans, `profiled` (a dict) takes the
+def _drive(cell, data, traced=None, profiled=None, attempt_records=None):
+    """One drive; per-scan ms of the steady scans.  `traced` (a dict)
+    takes the program's log of the steady scans, `profiled` (a dict) the
     profiler's sums over N_PROFILED of them, `attempt_records` profiles
     each loop attempt."""
     lio = LioSam(_params(cell), device="cuda", boot_scans=BOOT_SCANS)
@@ -268,9 +189,12 @@ def _drive(cell, data, totals=None, attempts=None, profiled=None,
             _feed(lio, s).pose_matrix.cpu()
             step_ms.append(1000.0 * (time.perf_counter() - t0))
 
-    if totals is not None:
-        with _synced_spans(totals), watched_attempts(attempts):
+    if traced is not None:
+        profiling.drain()
+        with profiling.tracing():
             run(steady)
+            lio.flush()
+        traced.update(profiling.drain())
     elif attempt_records is not None:
         with watched_attempts(attempt_records, profile=True):
             run(steady)
@@ -284,6 +208,7 @@ def _drive(cell, data, totals=None, attempts=None, profiled=None,
                                  ProfilerActivity.CUDA]) as prof:
             run(steady[lead:lead + N_PROFILED])
             torch.cuda.synchronize()
+        profiling.drain()   # the spans the profile recorded
         # the device's own events only: a host op's row repeats the time of
         # the kernels it launched
         on_device, events = _device_events(prof)
@@ -315,14 +240,22 @@ def profile_cell(cell, data):
                  "mean_ms": float(ms.mean()),
                  "p50_ms": float(np.percentile(ms, 50)),
                  "p99_ms": float(np.percentile(ms, 99))}}
-    totals: dict = {}
-    attempts: list = []
-    ms_b, _ = _drive(cell, data, totals=totals, attempts=attempts)
-    res["B"] = {"synced_step_ms": float(ms_b.mean()),
-                "spans": {k: {"ms_per_scan": v[0] / n_steady,
-                              "calls_per_scan": v[1] / n_steady,
-                              "ms_total": v[0], "calls": v[1]}
-                          for k, v in totals.items()},
+    lg: dict = {}
+    ms_b, _ = _drive(cell, data, traced=lg)
+    attempts = [dict(r["args"], scan=r["scans"][0],
+                     ms=(r["t1"] - r["t0"]) / 1e6,
+                     device_ms=(r["d1"] - r["d0"]) / 1e6
+                     if r["d0"] is not None else None)
+                for r in lg["spans"] if r["name"] == "loop_attempt"]
+    res["B"] = {"traced_step_ms": float(ms_b.mean()),
+                "spans": {k: dict(v, **{f"{q}_per_scan": v[q] / n_steady
+                                        for q in ("calls", "host_ms",
+                                                  "device_ms",
+                                                  "self_device_ms")})
+                          for k, v in profiling.summary(lg).items()},
+                "host_reads_per_scan": {
+                    k: n / n_steady
+                    for k, n in profiling.host_reads(lg).items()},
                 "attempts": attempts}
     prof: dict = {}
     _drive(cell, data, profiled=prof)

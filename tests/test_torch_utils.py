@@ -125,24 +125,6 @@ def test_checkpoint_to_msst_tpu(tmp_path):
     _assert_same_state(_from_jax(back), ts)
 
 
-def test_rate_tracker_and_stage_timer():
-    msgs = []
-    rt = tprof.RateTracker("test", report_every_s=0.0, printer=msgs.append)
-    for _ in range(5):
-        rt.tick(latency_s=0.01)
-    assert rt.rate_hz > 0
-    assert abs(rt.mean_latency_ms - 10.0) < 1.0
-    assert msgs and msgs[-1].startswith("[test] ")
-
-    st = tprof.StageTimer()
-    with st.stage("a"):
-        pass
-    with st.stage("a", sync=(torch.ones(3), {"b": [torch.zeros(2)]})):
-        pass
-    s = st.summary()
-    assert s["a"]["count"] == 2 and s["a"]["total_s"] >= 0.0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "tr")):
         torch.ones(64).sum()
