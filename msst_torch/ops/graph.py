@@ -2,10 +2,12 @@
 ``msst_tpu.ops.graph``; the GTSAM iSAM2 backend of
 ``mapOptmization.cpp:1381-1581``: prior, between and GPS factors).
 
-Residuals are whitened per factor and their 6-dof Jacobians are taken by
-forward-mode autodiff of the retraction (``torch.func.jacfwd``), as
-msst_tpu takes them with ``jax.jacfwd``.  Two solvers: the dense Cholesky
-:func:`optimize` and the matrix-free preconditioned CG :func:`optimize_cg`.
+Residuals are whitened per factor.  Their 6-dof Jacobians are closed-form
+blocks written over each factor table as a batch (msst_tpu takes them by
+``jax.jacfwd`` of the retraction); the tests hold them to a
+``torch.func.jacfwd`` twin and to msst_tpu's ``jax.jacfwd``.  Two solvers:
+the dense Cholesky :func:`optimize` and the matrix-free preconditioned CG
+:func:`optimize_cg`.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.func import jacfwd, vmap
 
 from ..utils import profiling
 from . import segments, se3
@@ -86,58 +87,68 @@ def empty_graph(max_poses: int, max_priors: int, max_betweens: int,
 # ---------------------------------------------------------------------------
 # residuals (gtsam-convention local coordinates) and their Jacobians
 # ---------------------------------------------------------------------------
+#
+# Each table's residuals are taken at its linearisation point a =
+# retract(pose, 0), batched over its rows, and its Jacobians are closed-form
+# blocks in the right perturbation of se3.pose_retract: rows [rotation,
+# translation], columns [dw, dv].  With D = meas^-1 (a^-1 b),
+# phi = Log(D.q), R_ab = R_a^T R_b and u = R_a^T (t_b - t_a):
+#
+#   between, i:  [[-Jr^-1(phi) R_ab^T, 0], [R_m^T [u]x, -R_m^T]]
+#   between, j:  [[ Jr^-1(phi),        0], [0,           R_m^T R_ab]]
+#   prior:       [[ Jr^-1(phi),        0], [0,           R_m^T R_a]]
+#   GPS:         [0, R_a]
 
 
-def _prior_residual(delta: Tensor, pose: Pose, meas: Pose) -> Tensor:
-    """r = Log(meas^-1 * retract(pose, delta)) -> (6,) [rot, trans]."""
-    d = meas.between(se3.pose_retract(pose, delta))
-    return torch.cat([se3.so3_log(d.q), d.t])
-
-
-def _between_residual(di: Tensor, dj: Tensor, pi: Pose, pj: Pose,
-                      meas: Pose) -> Tensor:
-    a = se3.pose_retract(pi, di)
-    b = se3.pose_retract(pj, dj)
-    d = meas.between(a.between(b))
-    return torch.cat([se3.so3_log(d.q), d.t])
-
-
-def _gps_residual(delta: Tensor, pose: Pose, z: Tensor) -> Tensor:
-    return se3.pose_retract(pose, delta).t - z
-
-
-def _take(poses: Pose, idx: Tensor) -> Pose:
+def _at(poses: Pose, idx: Tensor) -> Pose:
+    """Rows idx of the poses at retract(pose, 0): the quaternion
+    normalised.  The retraction by zero multiplies by the quaternion
+    (1, 0, 0, 0) and adds a rotated zero, which leave every value as it is,
+    so this is its result value for value, in 10 launches for its 77."""
     idx = idx.long()
-    return Pose(poses.q[idx], poses.t[idx])
+    return Pose(se3.quat_normalize(poses.q[idx]), poses.t[idx])
+
+
+def _blocks(rw: Tensor, rv: Tensor, tw: Tensor, tv: Tensor) -> Tensor:
+    """(N, 6, 6) [[rw, rv], [tw, tv]] from four (N, 3, 3) blocks."""
+    return torch.cat([torch.cat([rw, rv], -1), torch.cat([tw, tv], -1)], -2)
 
 
 def _prior_terms(poses: Pose, f: PriorFactor):
-    pi = _take(poses, f.idx)
-    z = torch.zeros(6, device=f.sqrt_info.device)
-    r = vmap(_prior_residual, in_dims=(None, 0, 0))(z, pi, f.meas)
-    J = vmap(jacfwd(_prior_residual), in_dims=(None, 0, 0))(z, pi, f.meas)
+    """Whitened r = Log(meas^-1 * a) (P, 6) and its Jacobian (P, 6, 6)."""
+    d = f.meas.between(_at(poses, f.idx))
+    r = se3.pose_log(d)
+    jr = se3.so3_right_jacobian_inv(r[:, :3])
+    o = torch.zeros_like(jr)
+    J = _blocks(jr, o, o, se3.quat_to_matrix(d.q))
     w = f.mask.to(r.dtype)[:, None] * f.sqrt_info
     return r * w, J * w[:, :, None]
 
 
 def _between_terms(poses: Pose, f: BetweenFactor):
-    pi, pj = _take(poses, f.i), _take(poses, f.j)
-    z = torch.zeros(6, device=f.sqrt_info.device)
-    dims = (None, None, 0, 0, 0)
-    r = vmap(_between_residual, in_dims=dims)(z, z, pi, pj, f.meas)
-    Ji = vmap(jacfwd(_between_residual, argnums=0), in_dims=dims)(
-        z, z, pi, pj, f.meas)
-    Jj = vmap(jacfwd(_between_residual, argnums=1), in_dims=dims)(
-        z, z, pi, pj, f.meas)
+    """Whitened r = Log(meas^-1 * a^-1 * b) (B, 6) and its Jacobians in
+    pose i and pose j (B, 6, 6) each."""
+    ab = _at(poses, f.i).between(_at(poses, f.j))
+    d = f.meas.between(ab)
+    r = se3.pose_log(d)
+    jr = se3.so3_right_jacobian_inv(r[:, :3])
+    o = torch.zeros_like(jr)
+    n = ab.q.shape[0]
+    rot = se3.quat_to_matrix(torch.cat([ab.q, f.meas.q]))
+    r_ab, r_mt = rot[:n], rot[n:].transpose(-1, -2)
+    Ji = _blocks(-(jr @ r_ab.transpose(-1, -2)), o,
+                 r_mt @ se3.skew(ab.t), -r_mt)
+    Jj = _blocks(jr, o, o, r_mt @ r_ab)
     w = f.mask.to(r.dtype)[:, None] * f.sqrt_info
     return r * w, Ji * w[:, :, None], Jj * w[:, :, None]
 
 
 def _gps_terms(poses: Pose, f: GpsFactor):
-    pi = _take(poses, f.idx)
-    z = torch.zeros(6, device=f.sqrt_info.device)
-    r = vmap(_gps_residual, in_dims=(None, 0, 0))(z, pi, f.xyz)
-    J = vmap(jacfwd(_gps_residual), in_dims=(None, 0, 0))(z, pi, f.xyz)
+    """Whitened r = t_a - xyz (G, 3) and its Jacobian (G, 3, 6)."""
+    a = _at(poses, f.idx)
+    r = a.t - f.xyz
+    r_a = se3.quat_to_matrix(a.q)
+    J = torch.cat([torch.zeros_like(r_a), r_a], -1)
     w = f.mask.to(r.dtype)[:, None] * f.sqrt_info
     return r * w, J * w[:, :, None]
 
@@ -207,11 +218,12 @@ def optimize(graph: PoseGraph, free_mask: Optional[Tensor] = None,
     if free_mask is None:
         free_mask = graph.pose_mask
     K = graph.capacity
-    with profiling.span("graph_solve", solver="dense", poses=K):
+    with profiling.span("graph_solve", solver="dense", poses=K, iters=iters):
         profiling.count("graph_solves")
         diag_mask = torch.repeat_interleave(free_mask & graph.pose_mask, 6)
         scatters = _dense_scatters(graph)
         for _ in range(iters):
+            profiling.count("graph_gn_iters")
             H, g = _assemble_dense(graph, free_mask, scatters)
             # inactive/fixed pose blocks: identity rows keep Cholesky PD
             H = H + torch.diag(torch.where(diag_mask, damping, 1.0))
@@ -238,7 +250,7 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
     if free_mask is None:
         free_mask = graph.pose_mask
     K = graph.capacity
-    with profiling.span("graph_solve", solver="cg", poses=K):
+    with profiling.span("graph_solve", solver="cg", poses=K, iters=iters):
         profiling.count("graph_solves")
         dev = graph.pose_mask.device
         pf, bf, gf = graph.priors, graph.betweens, graph.gps
@@ -253,6 +265,7 @@ def optimize_cg(graph: PoseGraph, free_mask: Optional[Tensor] = None,
             return to_pose(torch.cat(terms))
 
         for _ in range(iters):
+            profiling.count("graph_gn_iters")
             rp, Jp = _prior_terms(graph.poses, pf)
             rb, Ji, Jj = _between_terms(graph.poses, bf)
             rg, Jg = _gps_terms(graph.poses, gf)

@@ -211,6 +211,22 @@ def so3_left_jacobian(w: Tensor) -> Tensor:
     return eye + a * W + b * W2
 
 
+def so3_right_jacobian_inv(w: Tensor) -> Tensor:
+    """Inverse right Jacobian of SO(3) exp at w (..., 3) -> (..., 3, 3):
+    ``Log(Exp(w) Exp(d)) = w + Jr^-1(w) d`` to first order in d.
+    ``Jr^-1 = I + W/2 + c W^2``, ``c = 1/t^2 - (1 + cos t)/(2 t sin t)``,
+    taken in half angles (finite up to t = pi), Taylor at small t."""
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    half = 0.5 * theta
+    W = skew(w)
+    c = torch.where(theta2 < 1e-6, 1.0 / 12.0 + theta2 / 720.0,
+                    1.0 / (theta * theta)
+                    - torch.cos(half) / (2.0 * theta * torch.sin(half)))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + 0.5 * W + c * (W @ W)
+
+
 # ---------------------------------------------------------------------------
 # Pose
 # ---------------------------------------------------------------------------

@@ -56,7 +56,9 @@ The spans (name: where):
   under it ``candidates``, ``submap``, ``coarse_icp``, ``fine``, ``close``.
 
 Counters: ``host_read:<site>``, ``gn_iters``, ``b1_lookups``,
-``icp_iters``, ``keyframes``, ``graph_solves``, ``loop_closures``.
+``icp_iters``, ``keyframes``, ``graph_solves``, ``graph_gn_iters`` (one a
+Gauss-Newton iteration of a graph solve, whose span has ``iters`` among
+its args), ``loop_closures``.
 
 :func:`trace` is ``torch.profiler`` around a region with recording on,
 written to ``logdir/trace.json`` (chrome://tracing or Perfetto): the device

@@ -368,7 +368,9 @@ def cmd_layers(args):
                profiling.host_reads(lg).items(), key=lambda kv: -kv[1])},
            "counters": {k: profiling.counter_total(lg, k) for k in (
                "gn_iters", "b1_lookups", "icp_iters", "keyframes",
-               "graph_solves", "loop_closures")},
+               "graph_solves", "graph_gn_iters", "loop_closures")},
+           "graph_solve_iters": [r["args"]["iters"] for r in lg["spans"]
+                                 if r["name"] == "graph_solve"],
            "syncs_per_scan": n_sync / n,
            "explicit_syncs_per_scan": explicit / n,
            "implicit_syncs_per_scan": (n_sync - explicit) / n,
